@@ -1,0 +1,83 @@
+"""Shared helpers of the ``test_torch_*`` parity tests.
+
+Inputs are made with NumPy from a seed and handed to both packages — the JAX
+reference ``repro`` and the port ``repro_torch`` — as plain arrays; the port
+runs with ``device="cpu"``.
+"""
+import math
+
+import numpy as np
+import torch
+
+# xdist workers import torch and JAX together: keep torch's intra-op pool
+# from oversubscribing the host
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+
+
+class FakeReq:
+    def __init__(self, demand, granted=0):
+        self.demand, self.granted = demand, granted
+
+
+class FakeSched:
+    """The minimum a ``MatchState`` is built from."""
+
+    def __init__(self, slots):
+        self._slots = slots
+
+    def export_match_slots(self, limit=None):
+        if limit is None:
+            return self._slots
+        return [s if s is None else s[:limit] for s in self._slots]
+
+
+def random_slots(rng):
+    """Random candidate rows: a few atoms, a few requests, some tier bands,
+    some uncovered atoms."""
+    A = int(rng.integers(1, 6))
+    R = int(rng.integers(1, 8))
+    reqs = [FakeReq(int(rng.integers(1, 6))) for _ in range(R)]
+    slots = []
+    for _ in range(A):
+        if rng.uniform() < 0.1:
+            slots.append(None)
+            continue
+        row = []
+        for r in rng.permutation(R)[:int(rng.integers(0, R + 1))]:
+            if rng.uniform() < 0.3:
+                lo, hi = sorted(rng.uniform(0, 3, 2))
+            else:
+                lo, hi = -math.inf, math.inf
+            row.append((reqs[int(r)], float(lo), float(hi)))
+        slots.append(row)
+    return slots
+
+
+def random_segment(rng, state, n):
+    cov = np.flatnonzero(state.covered)
+    if len(cov) == 0:
+        return None, None
+    return rng.choice(cov, size=n), rng.uniform(0, 3, size=n)
+
+
+def state_arrays(state) -> dict:
+    """Lift a reference ``MatchState``'s arrays (the input of the port's
+    ``match_state_from_numpy``)."""
+    return {"cand_req": state.cand_req, "cand_lo": state.cand_lo,
+            "cand_hi": state.cand_hi, "remaining": state.remaining,
+            "covered": state.covered, "has_cand": state.has_cand,
+            "truncated": state.truncated, "kcap": state.kcap}
+
+
+def assert_mirror_equals(port_state, ref_state) -> None:
+    """The port's device mirror, read back, equals the reference's arrays."""
+    got = port_state.to_numpy()
+    want = state_arrays(ref_state)
+    for k in ("cand_req", "cand_lo", "cand_hi", "remaining", "covered",
+              "has_cand", "truncated"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["kcap"] == want["kcap"]
+    assert port_state.d_cand_req.dtype == torch.int32
+    assert port_state.d_cand_lo.dtype == torch.float64
