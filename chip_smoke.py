@@ -10,10 +10,18 @@ the check-in drain of ``Simulator(engine="array")`` under VENN-SCHED — at a
 size its users would call real (``tenx_r500_j2000``: base rate 500, about 15
 million check-ins in a quarter of a simulated day, 2000 jobs contending for
 the scarce high-performance tier), asserting metrics identical to the
-per-device loop.  It imports ``repro_torch`` only.
+per-device loop.  Then the server half of a federated round: the three
+federated-learning kernels (``fedavg_reduce``, ``quantize``,
+``dequantize``) against their plain versions at llama3.2-1b's largest leaf
+(``fl_kernel_checks``), and two rounds of three jobs under one Venn
+scheduler, job 0 llama3.2-1b at full width (1 235 814 400 parameters): each
+granted client's seeded delta compressed to int8 and back, aggregated and
+applied by FedAdam (``fl_round``).  It imports ``repro_torch`` only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
-``main_path``, ``dense_path``), the card's name and power limit, the
+``main_path``, ``dense_path``, ``fl_kernel_checks``, ``fl_round_setup``,
+one ``fl_round_job`` per job and round, ``fl_round``), the card's name and
+power limit, the
 ``kernels`` summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises;
 without a CUDA device the script exits non-zero before printing a result.
@@ -45,15 +53,27 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device available\n")
     sys.exit(1)
 
+from repro_torch import tree as tree_util
 from repro_torch.accel import replan as replan_mod
 from repro_torch.accel.engine import match_chunk_seq, match_chunk_torch
 from repro_torch.accel.kernels import build, replan_order, schedule_match
 from repro_torch.accel.state import MatchState
-from repro_torch.core import SCHEDULERS
+from repro_torch.configs import get_config
+from repro_torch.core import SCHEDULERS, Job, JobRequest, VennScheduler
 from repro_torch.device import default_device
+from repro_torch.fed import aggregation as fed_aggregation
+from repro_torch.fed.aggregation import FedAdam, FedAvg, aggregate_deltas
+from repro_torch.fed.compression import (QuantizeConfig, compress,
+                                         compressed_bytes, decompress)
+from repro_torch.kernels import fedavg_reduce as fedavg_mod
+from repro_torch.kernels import ops as fl_ops
+from repro_torch.kernels import quantize as quant_mod
+from repro_torch.kernels import ref as fl_ref
+from repro_torch.models import build_model
 from repro_torch.sim import (JobTraceConfig, PopulationConfig, SimConfig,
                              generate_jobs)
-from repro_torch.sim.devices import REQ_HIGHPERF
+from repro_torch.sim.devices import (REQ_HIGHPERF, REQUIREMENT_CLASSES,
+                                     DeviceGenerator)
 from repro_torch.sim.simulator import Simulator
 
 # Published peaks of one H100 SXM: HBM bandwidth; and for the scalar f64 / i32
@@ -96,8 +116,10 @@ def time_ms(fn, reps: int = 50, batches: int = 5) -> float:
 # --------------------------------------------------------------------------- #
 
 def phase_env() -> str:
-    schedule_match.ensure_built()
+    schedule_match.ensure_built()          # builds every kernel source at once
     replan_order.ensure_built()
+    fedavg_mod.ensure_built()
+    quant_mod.ensure_built()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -449,6 +471,351 @@ def run_both(tag, make_jobs, pop, max_time, note):
     return arr, prof
 
 
+# --------------------------------------------------------------------------- #
+# 6. the federated-learning kernels vs their plain versions
+# --------------------------------------------------------------------------- #
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """Bit patterns of a float tensor (so NaN equals NaN of the same bits)."""
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int16)
+
+
+def check_fedavg(K, N, dtype, seed, timed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    u = torch.randn((K, N), generator=g, device=DEV).to(dtype)
+    w = torch.rand(K, generator=g, device=DEV) * 4.9 + 0.1
+    got = fl_ops.fedavg_reduce(u, w)
+    torch.cuda.synchronize()
+    want = fl_ref.fedavg_reduce_ref(u, w)
+    assert got.dtype == dtype and tuple(got.shape) == (N,)
+    assert bool(torch.isfinite(got.float()).all()), ("fedavg_reduce", K, N)
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    assert err <= tol, ("fedavg_reduce", K, N, dtype, err)
+    row = {"K": K, "N": N, "dtype": str(dtype).removeprefix("torch."),
+           "max_abs_err": err, "tolerance": tol,
+           "bit_equal": bool(torch.equal(_bits(got), _bits(want)))}
+    if timed:
+        wn = fl_ref.normalized_weights(w)
+        lib_err = float((torch.mv(u.t(), wn) - want).abs().max())
+        nbytes = (K + 1) * N * u.element_size() + K * 4
+        row.update(
+            ms=time_ms(lambda: fl_ops.fedavg_reduce(u, w), reps=10, batches=3),
+            plain_ms=time_ms(lambda: fl_ref.fedavg_reduce_ref(u, w), reps=2,
+                             batches=3),
+            library_ms=time_ms(lambda: torch.mv(u.t(), wn), reps=10,
+                               batches=3),
+            library="torch.mv(u.t(), w_normalised)", library_max_abs_err=lib_err,
+            bound_bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+    del u
+    return row
+
+
+def check_quant(N, block, seed, timed, nan_block=None):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    x = torch.randn(N, generator=g, device=DEV) * (0.01 + 10.0 * (seed % 7))
+    if nan_block is not None:
+        x[nan_block * block + 17] = float("nan")
+    q, s = fl_ops.quantize(x, block=block, rows_per_tile=1)
+    torch.cuda.synchronize()
+    q_p, s_p = fl_ref.quantize_ref(x, block)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(q, q_p) and torch.equal(_bits(s), _bits(s_p)), (
+        "quantize", N, block, int((q != q_p).sum()),
+        int((_bits(s) != _bits(s_p)).sum()))
+    if nan_block is not None:
+        assert math.isnan(float(s[nan_block]))
+        assert not q[nan_block * block:(nan_block + 1) * block].any()
+    row_q = {"N": N, "block": block, "codes_equal": True,
+             "scales_bit_equal": True, "nan_block": nan_block,
+             "max_abs_err": int((q.int() - q_p.int()).abs().max())}
+    row_d = {"N": N, "block": block}
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        d = fl_ops.dequantize(q, s, block=block, rows_per_tile=1, dtype=dt)
+        torch.cuda.synchronize()
+        d_p = fl_ref.dequantize_ref(q, s, block, dt)
+        assert d.dtype == dt and torch.equal(_bits(d), _bits(d_p)), \
+            ("dequantize", N, block, dt)
+        fin = torch.isfinite(d_p)
+        errs.append(float((d.float() - d_p.float())[fin].abs().max()))
+        row_d["bit_equal_" + str(dt).removeprefix("torch.")] = True
+    row_d["max_abs_err"] = max(errs)
+    if timed:
+        nbytes = N * 4 + N + (N // block) * 4
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        row_q.update(
+            ms=time_ms(lambda: fl_ops.quantize(x, block=block,
+                                               rows_per_tile=1), reps=20,
+                       batches=3),
+            plain_ms=time_ms(lambda: fl_ref.quantize_ref(x, block), reps=3,
+                             batches=3),
+            library_ms=None, bound_bytes=nbytes, bound_ms=bound,
+            bound_by="bytes")
+        row_d.update(
+            ms=time_ms(lambda: fl_ops.dequantize(q, s, block=block,
+                                                 rows_per_tile=1), reps=20,
+                       batches=3),
+            plain_ms=time_ms(lambda: fl_ref.dequantize_ref(q, s, block),
+                             reps=3, batches=3),
+            library_ms=None, bound_bytes=nbytes, bound_ms=bound,
+            bound_by="bytes", dtype="float32")
+    return row_q, row_d
+
+
+FL_BIG_N = 16 * 2048 * 8192        # llama3.2-1b's largest leaf, 2^28
+
+
+def phase_fl_kernels():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = [check_fedavg(8, FL_BIG_N, torch.float32, 1, timed=True)]
+    torch.cuda.empty_cache()
+    for i, (K, N) in enumerate(((5, 1000), (16, 4096), (3, 7), (64, 513),
+                                (1, 300))):
+        for dt in (torch.float32, torch.bfloat16):
+            fa.append(check_fedavg(K, N, dt, 10 + i, timed=False))
+    qz, dq = [], []
+    rq, rd = check_quant(FL_BIG_N, 256, 2, timed=True,
+                         nan_block=FL_BIG_N // 256 // 3)
+    qz.append(rq)
+    dq.append(rd)
+    torch.cuda.empty_cache()
+    for i, (N, block) in enumerate(((1024, 256), (256 * 192, 256),
+                                    (512, 128), (4096, 512))):
+        rq, rd = check_quant(N, block, 20 + i, timed=False,
+                             nan_block=1 if i == 1 else None)
+        qz.append(rq)
+        dq.append(rd)
+    emit("fl_kernel_checks", {
+        "fedavg_reduce": fa, "quantize": qz, "dequantize": dq,
+        "tolerance": "fedavg_reduce 1e-6 f32, 2e-2 bf16 against the plain "
+                     "version; quantize codes and scales, dequantize f32 and "
+                     "bf16 bit-equal",
+        "timing": "median of 3 batches of back-to-back launches, CUDA events"})
+    return fa, qz, dq
+
+
+# --------------------------------------------------------------------------- #
+# 7. the federated server round: three jobs under one Venn scheduler
+# --------------------------------------------------------------------------- #
+
+FL_ROUNDS = 2
+FL_JOBS = (  # (arch, reduced, demand per round, server)
+    ("llama3.2-1b", False, 8, FedAdam(lr=1e-2)),
+    ("stablelm-1.6b", True, 4, FedAvg(server_lr=1.0)),
+    ("qwen3-32b", True, 4, FedAvg(server_lr=1.0)),
+)
+LLAMA_3_2_1B_PARAMS = 1_235_814_400
+
+
+def _fl_counts():
+    return (quant_mod.quantize_launches, quant_mod.dequantize_launches,
+            fedavg_mod.launches, fed_aggregation.plain_leaves)
+
+
+def _check_aggregate(deltas, agg):
+    """A plain recomputation, leaf by leaf, from the same decompressed
+    deltas."""
+    w = torch.ones(len(deltas), dtype=torch.float32, device=DEV)
+    per_client = [tree_util.leaves(d) for d in deltas]
+    err = 0.0
+    for i, leaf in enumerate(tree_util.leaves(agg)):
+        stack = torch.stack([ls[i].reshape(-1) for ls in per_client])
+        want = fl_ref.fedavg_reduce_ref(stack, w)
+        del stack
+        err = max(err, float((leaf.reshape(-1) - want).abs().max()))
+    return err
+
+
+def _ordered_bf16(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in value order, one per ulp."""
+    b = t.contiguous().view(torch.int16).to(torch.int32)
+    return torch.where(b < 0, -(b & 0x7FFF), b)
+
+
+def _check_fedadam_step(server, old_params, agg, new_params, state):
+    """The first FedAdam step written out plainly, leaf by leaf: ``g = -d``,
+    ``m = (1-b1) g``, ``v = (1-b2) g²``, ``p - lr m̂ / (sqrt(v̂) + eps)``,
+    with the reference's f32 bias corrections ``1 - b**1`` (a Python-double
+    ``1 - b1`` is another f32 value, and where ``p ≈ lr`` the subtraction
+    cancels and turns that last bit into a different bf16 result)."""
+    b1, b2 = server.b1, server.b2
+    c1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=DEV)
+    c2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=DEV)
+    ulps, mom = 0, 0.0
+    for p, d, n, m, v in zip(tree_util.leaves(old_params),
+                             tree_util.leaves(agg),
+                             tree_util.leaves(new_params),
+                             tree_util.leaves(state.mu),
+                             tree_util.leaves(state.nu)):
+        g = -d
+        m_p = (1 - b1) * g
+        v_p = (1 - b2) * g * g
+        mom = max(mom, float((m - m_p).abs().max()),
+                  float((v - v_p).abs().max()))
+        upd = (m_p / c1) / (torch.sqrt(v_p / c2) + server.eps)
+        want = (p.float() - server.lr * upd).to(p.dtype)
+        ulps = max(ulps, int((_ordered_bf16(n) - _ordered_bf16(want))
+                             .abs().max()))
+    return ulps, mom
+
+
+def phase_fl_round():
+    """``examples/fl_multijob_training.py``'s loop with the repo's settings:
+    three jobs share one Venn scheduler and one device population; job 0 is
+    llama3.2-1b at full width.  A granted client's delta is made on the card
+    from a seed (``1e-3 · N(0, 1)`` f32 per leaf) in place of the local
+    update, compressed to int8 and decompressed; the server aggregates and
+    applies."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+    jobs, models, params, servers, states = [], [], [], [], []
+    for i, (arch, reduced, demand, server) in enumerate(FL_JOBS):
+        cfg = get_config(arch)
+        if reduced:
+            cfg = cfg.reduced().with_(n_layers=2, vocab=128)
+        model = build_model(cfg)
+        p = model.init_params(torch.Generator(device=DEV).manual_seed(i), DEV)
+        jobs.append(Job(job_id=i, requirement=REQUIREMENT_CLASSES[i % 3],
+                        demand_per_round=demand, total_rounds=FL_ROUNDS,
+                        arrival_time=0.0))
+        models.append(model)
+        params.append(p)
+        servers.append(server)
+        states.append(server.init(p))
+    assert models[0].n_params() == LLAMA_3_2_1B_PARAMS
+    assert sum(t.numel() for t in tree_util.leaves(params[0])) \
+        == LLAMA_3_2_1B_PARAMS
+    emit("fl_round_setup", {
+        "memory_allocated_at_start": allocated_at_start,
+        "memory_allocated_with_models_and_state":
+            torch.cuda.memory_allocated()})
+    venn = VennScheduler(seed=0, device=DEV)
+    devgen = DeviceGenerator(PopulationConfig(seed=3, base_rate=5.0))
+    cfg_q = QuantizeConfig()
+    rows = []
+    quant_mod.reset_launches()
+    fedavg_mod.reset_launches()
+    fed_aggregation.reset_counts()
+    torch.cuda.synchronize()
+    t_phase = time.perf_counter()
+    now = 0.0
+    for rnd in range(FL_ROUNDS):
+        reqs = []
+        for j in jobs:
+            req = JobRequest(job=j, round_index=rnd, demand=j.demand_per_round,
+                             submit_time=now)
+            j.current = req
+            venn.on_request(req, now)
+            reqs.append(req)
+        assigned = {j.job_id: [] for j in jobs}
+        times = devgen.checkin_times(now, now + 600.0)
+        for dev in devgen.sample_devices(times):
+            req = venn.assign(dev, float(dev.checkin_time))
+            if req is not None and req.remaining > 0:
+                req.granted += 1
+                assigned[req.job.job_id].append(dev)
+            if all(r.remaining == 0 for r in reqs):
+                break
+        now += 600.0
+        for ji, job in enumerate(jobs):
+            devs = assigned[job.job_id][:job.demand_per_round]
+            n_leaves = len(tree_util.leaves(params[ji]))
+            before = _fl_counts()
+            t_c = t_d = 0.0
+            c_bytes = raw_bytes = 0
+            deltas = []
+            for ci in range(len(devs)):
+                g = torch.Generator(device=DEV).manual_seed(
+                    1_000_000 * ji + 1000 * rnd + ci)
+                delta = tree_util.map(
+                    lambda p: torch.randn(p.shape, generator=g, device=DEV
+                                          ).mul_(1e-3), params[ji])
+                raw_bytes += sum(t.numel() * 4 for t in tree_util.leaves(delta))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                packed = compress(delta, cfg_q)
+                torch.cuda.synchronize()
+                t_c += time.perf_counter() - t0
+                del delta
+                c_bytes += compressed_bytes(packed)
+                t0 = time.perf_counter()
+                deltas.append(decompress(packed, cfg_q))
+                torch.cuda.synchronize()
+                t_d += time.perf_counter() - t0
+                del packed
+            assert deltas, f"job {ji} round {rnd}: no client was granted"
+            allocated_before_aggregate = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            agg = aggregate_deltas(deltas, [1.0] * len(deltas))
+            torch.cuda.synchronize()
+            t_a = time.perf_counter() - t0
+            checks = {}
+            if ji == 0 and rnd == 0:
+                checks["aggregate_max_abs_err_vs_plain"] = \
+                    _check_aggregate(deltas, agg)
+                assert checks["aggregate_max_abs_err_vs_plain"] <= 1e-6, checks
+            del deltas
+            old = params[ji]
+            t0 = time.perf_counter()
+            params[ji], states[ji] = servers[ji].apply(params[ji], agg,
+                                                       states[ji])
+            torch.cuda.synchronize()
+            t_p = time.perf_counter() - t0
+            if ji == 0 and rnd == 0:
+                ulps, mom = _check_fedadam_step(servers[0], old, agg,
+                                                params[0], states[0])
+                checks.update(params_max_bf16_ulps_vs_plain_fedadam=ulps,
+                              moments_max_abs_err_vs_plain=mom)
+                assert ulps <= 1 and mom <= 1e-6, checks
+            del old, agg
+            for t in tree_util.leaves(params[ji]):
+                assert bool(torch.isfinite(t.float()).all()), (ji, rnd)
+            venn.on_complete(job.current, now)
+            job.current = None
+            job.rounds_done += 1
+            after = _fl_counts()
+            q, dq, fa, plain = (a - b for a, b in zip(after, before))
+            clients = len(devs)
+            assert q == n_leaves * clients and dq == n_leaves * clients, \
+                (ji, rnd, q, dq, n_leaves, clients)
+            assert fa == n_leaves - plain, (ji, rnd, fa, plain, n_leaves)
+            if ji == 0:
+                assert plain == 0 and clients == job.demand_per_round, \
+                    (plain, clients)
+            rows.append(dict(
+                job=ji, arch=FL_JOBS[ji][0], round=rnd, clients=clients,
+                n_params=models[ji].n_params(), leaves=n_leaves,
+                server=type(servers[ji]).__name__,
+                compress_s=t_c, decompress_s=t_d, aggregate_s=t_a,
+                apply_s=t_p, compressed_bytes=c_bytes, raw_bytes=raw_bytes,
+                uplink_ratio=c_bytes / raw_bytes,
+                launches={"quantize": q, "dequantize": dq,
+                          "fedavg_reduce": fa},
+                plain_leaves=plain,
+                memory_allocated_before_aggregate=allocated_before_aggregate,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                **checks))
+            emit("fl_round_job", rows[-1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    totals = {"quantize": quant_mod.quantize_launches,
+              "dequantize": quant_mod.dequantize_launches,
+              "fedavg_reduce": fedavg_mod.launches}
+    assert all(v > 0 for v in totals.values()), totals
+    assert states[0].step.item() == FL_ROUNDS
+    emit("fl_round", {
+        "rounds": FL_ROUNDS, "jobs": [a for a, *_ in FL_JOBS],
+        "job0_n_params": LLAMA_3_2_1B_PARAMS, "wall_s": wall,
+        "launches": totals, "plain_leaves": fed_aggregation.plain_leaves,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    return totals
+
+
 def main() -> None:
     smi = phase_env()
     ff, rk = phase_kernels()
@@ -467,6 +834,8 @@ def main() -> None:
         3.0 * 24 * 3600.0,
         "heavy_r50_j200: base_rate 50, 200 jobs, general requirement mix, "
         "seed 1, 3 simulated days (horizon cut from 30)")
+    fa, qz, dq = phase_fl_kernels()
+    fl_launches = phase_fl_round()
 
     print(smi, flush=True)
     src = "src/repro_torch/accel/kernels/csrc/"
@@ -498,8 +867,28 @@ def main() -> None:
              other_shapes=[{k: rk[1][k] for k in ("n", "segments", "ms",
                                                   "plain_ms", "bound_ms")}]),
     ]
+    fl_src = "src/repro_torch/kernels/csrc/"
+    fl_shape = f"N={FL_BIG_N} (llama3.2-1b's largest leaf)"
+    for name, source, replaces, rows, shape in (
+            ("fedavg_reduce", "fedavg_reduce.cu",
+             "src/repro/kernels/fedavg_reduce.py:61", fa,
+             f"K=8 {fl_shape} f32"),
+            ("quantize", "quantize.cu", "src/repro/kernels/quantize.py:40", qz,
+             f"{fl_shape} block=256"),
+            ("dequantize", "quantize.cu", "src/repro/kernels/quantize.py:60",
+             dq, f"{fl_shape} block=256 to f32")):
+        kernels.append(dict(
+            name=name, route="cuda", source=fl_src + source, replaces=replaces,
+            launches=fl_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if r.get("dtype", "float32") == "float32"),
+            ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
+            bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
+            library_ms=rows[0]["library_ms"], shape=shape))
+    tolerance = {"fedavg_reduce": 1e-6}   # its f32 rows (bf16: 2e-2, above)
     for k in kernels:
-        assert k["launches"] > 0 and k["max_abs_err"] == 0, k
+        assert k["launches"] > 0, k
+        assert k["max_abs_err"] <= tolerance.get(k["name"], 0), k
     emit("total_seconds", time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,10 @@
-"""Build and load the CUDA kernels under ``csrc/``.
+"""Build and load the port's CUDA kernels.
 
-Each ``csrc/*.cu`` is a plain-C-interface source (no PyTorch headers): it
-compiles in seconds with
+The sources are every ``*.cu`` of the two kernel directories,
+``repro_torch/accel/kernels/csrc/`` (the scheduler's kernels) and
+``repro_torch/kernels/csrc/`` (the federated-learning kernels), one source
+list with unique file names.  Each is a plain-C-interface source (no PyTorch
+headers): it compiles in seconds with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/<hash>/<name>.so csrc/<name>.cu
@@ -26,7 +29,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
-CSRC = Path(__file__).resolve().parent / "csrc"
+CSRC_DIRS = (Path(__file__).resolve().parent / "csrc",
+             Path(__file__).resolve().parents[2] / "kernels" / "csrc")
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -65,7 +69,14 @@ def find_nvcc() -> str:
 
 
 def sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+    """Every kernel source, sorted by file name (names are unique: a
+    library is looked up by its source's stem)."""
+    srcs = sorted((p for d in CSRC_DIRS for p in d.glob("*.cu")),
+                  key=lambda p: p.name)
+    names = [p.name for p in srcs]
+    if len(set(names)) != len(names):
+        raise KernelCompileError(f"kernel source names collide: {names}")
+    return srcs
 
 
 def source_hash() -> str:
@@ -107,7 +118,7 @@ def _build_all(out_dir: Path) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The shared library built from ``csrc/<name>.cu`` (building every
+    """The shared library built from ``<name>.cu`` (building every
     source first if this hash has not been built yet)."""
     lib = _libs.get(name)
     if lib is not None:
@@ -117,7 +128,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if not path.exists():
         _build_all(out_dir)
     if not path.exists():
-        raise KernelCompileError(f"no kernel source csrc/{name}.cu")
+        raise KernelCompileError(f"no kernel source {name}.cu")
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:

@@ -1,0 +1,10 @@
+"""llama3.2-1b — [hf:meta-llama/Llama-3.2-1B; unverified].
+16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256, tied embeddings."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="llama3.2-1b", family="dense", source="hf:meta-llama/Llama-3.2-1B",
+    n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64,
+    d_ff=8192, vocab=128_256,
+    attention="full", rope_theta=500_000.0, tie_embeddings=True,
+))

@@ -30,11 +30,26 @@ def test_package_has_the_expected_modules():
                  "repro_torch.accel.kernels.schedule_match",
                  "repro_torch.accel.kernels.replan_order",
                  "repro_torch.core.manager", "repro_torch.sim.simulator",
-                 "repro_torch.obs.audit", "repro_torch.fed.overcommit"):
+                 "repro_torch.obs.audit", "repro_torch.fed.overcommit",
+                 "repro_torch.tree", "repro_torch.configs",
+                 "repro_torch.configs.base", "repro_torch.configs.llama3_2_1b",
+                 "repro_torch.models.common", "repro_torch.models.ffn",
+                 "repro_torch.models.moe", "repro_torch.models.mamba",
+                 "repro_torch.models.blocks", "repro_torch.models.model",
+                 "repro_torch.models.convert", "repro_torch.kernels.ref",
+                 "repro_torch.kernels.ops",
+                 "repro_torch.kernels.fedavg_reduce",
+                 "repro_torch.kernels.quantize",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.fed.compression",
+                 "repro_torch.fed.aggregation"):
         assert name in MODULES, name
     csrc = PKG / "accel" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",
                                                    "segmented_rank.cu"}
+    csrc = PKG / "kernels" / "csrc"
+    assert {p.name for p in csrc.glob("*.cu")} == {"fedavg_reduce.cu",
+                                                   "quantize.cu"}
 
 
 def test_importing_every_module_pulls_in_neither_jax_nor_repro():
@@ -65,10 +80,17 @@ def test_sources_import_neither_jax_nor_the_reference(path):
 
 
 def test_kernel_sources_are_cuda_with_a_plain_c_interface():
-    for cu in (PKG / "accel" / "kernels" / "csrc").glob("*.cu"):
+    from repro_torch.accel.kernels import build
+    cus = [cu for d in (PKG / "accel" / "kernels" / "csrc",
+                        PKG / "kernels" / "csrc") for cu in d.glob("*.cu")]
+    assert len(cus) == 4
+    for cu in cus:
         text = cu.read_text()
         assert "__global__" in text and 'extern "C"' in text, cu.name
         assert "torch/" not in text and "ATen" not in text, cu.name
+    # one source list, one hash, one build directory for all of them
+    assert sorted(build.sources()) == sorted(cus)
+    assert "--use_fast_math" not in build.NVCC_FLAGS
 
 
 def test_default_device_raises_without_cuda():
