@@ -16,12 +16,18 @@ federated-learning kernels (``fedavg_reduce``, ``quantize``,
 (``fl_kernel_checks``), and two rounds of three jobs under one Venn
 scheduler, job 0 llama3.2-1b at full width (1 235 814 400 parameters): each
 granted client's seeded delta compressed to int8 and back, aggregated and
-applied by FedAdam (``fl_round``).  It imports ``repro_torch`` only.
+applied by FedAdam (``fl_round``).  Then serving: the flash-attention kernel
+against its plain version at the reference's test shapes, ragged lengths, a
+query offset and the serve shape (``flash_kernel_checks``), and
+llama3.2-1b at full width serving four prompts of 1024 tokens for 32 new
+tokens through ``Engine.generate``, its prefill's attention in the kernel,
+checked against a prefill on the plain version and against full re-forwards
+(``serve``).  It imports ``repro_torch`` only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
 ``main_path``, ``dense_path``, ``fl_kernel_checks``, ``fl_round_setup``,
-one ``fl_round_job`` per job and round, ``fl_round``), the card's name and
-power limit, the
+one ``fl_round_job`` per job and round, ``fl_round``,
+``flash_kernel_checks``, ``serve``), the card's name and power limit, the
 ``kernels`` summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises;
 without a CUDA device the script exits non-zero before printing a result.
@@ -66,10 +72,13 @@ from repro_torch.fed.aggregation import FedAdam, FedAvg, aggregate_deltas
 from repro_torch.fed.compression import (QuantizeConfig, compress,
                                          compressed_bytes, decompress)
 from repro_torch.kernels import fedavg_reduce as fedavg_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops as fl_ops
 from repro_torch.kernels import quantize as quant_mod
 from repro_torch.kernels import ref as fl_ref
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import build_model
+from repro_torch.serve import Engine, grow_caches
 from repro_torch.sim import (JobTraceConfig, PopulationConfig, SimConfig,
                              generate_jobs)
 from repro_torch.sim.devices import (REQ_HIGHPERF, REQUIREMENT_CLASSES,
@@ -82,6 +91,8 @@ from repro_torch.sim.simulator import Simulator
 # compare is one instruction, so 17e12 of them a second.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_SCALAR_OPS_PER_S = 17e12
+# and the dense bf16 tensor-core rate, the card's peak for bf16 attention
+PEAK_BF16_FLOPS = 989e12
 
 DEV = default_device()
 T_START = time.perf_counter()
@@ -120,6 +131,7 @@ def phase_env() -> str:
     replan_order.ensure_built()
     fedavg_mod.ensure_built()
     quant_mod.ensure_built()
+    flash_mod.ensure_built()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -385,7 +397,7 @@ def _profiled(run):
             "top_device_rows": [{"name": e.key[:80], "count": e.count,
                                  "device_s": e.self_device_time_total / 1e6}
                                 for e in top[:12]]}
-    for name in ("masked_first_fit", "segmented_rank"):
+    for name in ("masked_first_fit", "segmented_rank", "flash_kernel"):
         mine = [e for e in rows if name in e.key]
         prof[name + "_device_us_per_launch"] = \
             sum(e.self_device_time_total for e in mine) \
@@ -816,6 +828,268 @@ def phase_fl_round():
     return totals
 
 
+# --------------------------------------------------------------------------- #
+# 8. the flash-attention kernel vs its plain version
+# --------------------------------------------------------------------------- #
+
+# tests/test_kernels.py::FLASH_CASES: (B, T, S, H, Hkv, D, causal, window, bq, bk)
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 64, True, 0, 128, 128),
+    (2, 256, 256, 4, 2, 64, True, 0, 128, 64),
+    (1, 128, 128, 4, 1, 128, True, 64, 64, 64),
+    (1, 256, 256, 2, 2, 32, False, 0, 128, 128),
+    (2, 128, 128, 8, 4, 64, True, 32, 64, 32),
+    (1, 512, 512, 2, 1, 64, True, 128, 128, 128),
+]
+# ragged lengths, a query offset, every head_dim: (B, T, S, H, Hkv, D, causal,
+# window, q_offset)
+FLASH_EXTRA = [
+    (2, 1000, 1000, 4, 2, 64, True, 0, 0),
+    (1, 1000, 1000, 4, 4, 16, False, 0, 0),
+    (2, 100, 356, 4, 2, 64, True, 0, 256),
+    (1, 77, 77, 4, 2, 16, True, 32, 0),
+    (1, 130, 130, 2, 1, 128, False, 50, 0),
+    (1, 33, 97, 2, 2, 32, True, 40, 64),
+    (1, 500, 500, 16, 16, 80, False, 0, 0),      # hubert-xlarge's heads
+]
+FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
+
+
+def _valid_pairs(T, S, causal, window, q_offset):
+    """(query, key) pairs the mask lets through, per batch row and head."""
+    qpos = q_offset + np.arange(T)
+    last = np.minimum(S - 1, qpos) if causal else np.full(T, S - 1)
+    first = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(T)
+    return int(np.clip(last - first + 1, 0, None).sum())
+
+
+def check_flash(B, T, S, H, Hkv, D, causal, window, q_offset, dtype, seed,
+                blocks=None, timed=False):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((B, T, H, D), generator=g, device=DEV).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=DEV).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=DEV).to(dtype)
+    if blocks is not None:          # the public wrapper, the reference's tiles
+        got = fl_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                     block_q=blocks[0], block_k=blocks[1])
+    else:
+        got = flash_mod.flash_attention(q, k, v, causal=causal, window=window,
+                                        q_offset=q_offset)
+    torch.cuda.synchronize()
+    want = flash_mod.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all()), ("flash", B, T, S, D)
+    err = float((got.float() - want.float()).abs().max())
+    tol = FLASH_TOL[dtype]
+    assert err <= tol, ("flash_attention", B, T, S, H, Hkv, D, causal,
+                        window, q_offset, dtype, err)
+    row = {"B": B, "T": T, "S": S, "H": H, "Hkv": Hkv, "D": D,
+           "causal": causal, "window": window, "q_offset": q_offset,
+           "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+           "tolerance": tol}
+    if timed:
+        pairs = B * H * _valid_pairs(T, S, causal, window, q_offset)
+        flops = 4 * D * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib_err = float((sdpa().transpose(1, 2).float() - want.float())
+                        .abs().max())
+        row.update(
+            ms=time_ms(lambda: flash_mod.flash_attention(
+                q, k, v, causal=causal, window=window), reps=20, batches=3),
+            plain_ms=time_ms(lambda: flash_mod.flash_attention_plain(
+                q, k, v, causal=causal, window=window), reps=5, batches=3),
+            library_ms=time_ms(sdpa, reps=20, batches=3),
+            library="scaled_dot_product_attention(is_causal, enable_gqa)",
+            library_max_abs_err=lib_err, bound_flops=flops,
+            bound_bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return row
+
+
+def phase_flash_kernels():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for i, (B, T, S, H, Hkv, D, causal, window, bq, bk) in enumerate(
+            FLASH_CASES):
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(check_flash(B, T, S, H, Hkv, D, causal, window, 0, dt,
+                                    100 + i, blocks=(bq, bk)))
+    for i, case in enumerate(FLASH_EXTRA):
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append(check_flash(*case, dt, 200 + i))
+    serve = check_flash(SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64, True,
+                        0, 0, torch.bfloat16, 300, timed=True)
+    emit("flash_kernel_checks", {
+        "rows": rows, "serve_shape": serve,
+        "tolerance": "2e-6 f32, 2e-2 bf16 (max abs) against the plain "
+                     "version; f32 oracles without TF32",
+        "timing": "median of 3 batches of back-to-back launches, CUDA events"})
+    return rows, serve
+
+
+# --------------------------------------------------------------------------- #
+# 9. serving llama3.2-1b at full width
+# --------------------------------------------------------------------------- #
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def _plain_prefill(model, params, batch):
+    """``Model.prefill`` with ``chunked_attention`` on the kernel's plain
+    version (the wrapper's kernel launch swapped out for this one call)."""
+    kernel = flash_mod.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0, q_offset=0):
+        return flash_mod.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window,
+                                               q_offset=q_offset)
+    flash_mod.flash_attention = plain
+    try:
+        return model.prefill(params, batch)
+    finally:
+        flash_mod.flash_attention = kernel
+
+
+def phase_serve():
+    """``Engine.generate`` on llama3.2-1b at full width (seeded bf16
+    weights): four prompts of 1024 seeded tokens, 32 new tokens each."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(0), DEV)
+    assert model.n_params() == LLAMA_3_2_1B_PARAMS
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                          dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(prompt).to(DEV)}
+    eng = Engine(cfg, params, device=DEV)
+    eng.generate(batch, max_new=2)                # warm-up: cuBLAS, modules
+    torch.cuda.synchronize()
+
+    flash_mod.reset_launches()
+    attn_mod.reset_counts()
+    gen, stats = eng.generate(batch, max_new=SERVE_NEW)
+    launches = flash_mod.launches
+    plain_calls = attn_mod.attention_plain_calls
+    assert gen.shape == (SERVE_B, SERVE_NEW)
+    assert ((gen >= 0) & (gen < cfg.vocab)).all()
+    assert launches == cfg.n_layers, launches           # 16: one prefill
+    assert plain_calls == 0, plain_calls
+    peak = torch.cuda.max_memory_allocated()
+
+    # (a) prefill through the kernel == prefill through the plain version
+    with torch.no_grad():
+        logits_k, caches = model.prefill(params, batch)
+        logits_p, _ = _plain_prefill(model, params, batch)
+    scale = float(logits_p.float().abs().max())
+    tol_a = 8 * _bf16_ulp(scale)
+    err_a = float((logits_k.float() - logits_p.float()).abs().max())
+    assert bool(torch.isfinite(logits_k.float()).all())
+    assert err_a <= tol_a, ("prefill kernel vs plain", err_a, tol_a)
+
+    # (b) cached decode == full re-forward, at every one of the engine's
+    # steps; the greedy tokens of these steps are the engine's, bit for bit
+    steps = SERVE_NEW
+    caches = grow_caches(model, caches, SERVE_NEW)
+    toks = batch["tokens"]
+    logits = logits_k
+    tol_b = 2.0 ** -4 * scale
+    rows_b, under_margin, worst = [], 0, 0.0
+    greedy = []
+    for i in range(steps):
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        greedy.append(tok)
+        toks = torch.cat([toks, tok.to(toks.dtype)], dim=1)
+        logits, caches = model.decode_step(params, caches, tok,
+                                           SERVE_PROMPT + i)
+        full, _ = model.forward(params, {"tokens": toks})
+        ref_last = full[:, -1, :].float()
+        del full
+        dec = logits[:, -1, :].float()
+        err = float((dec - ref_last).abs().max())
+        top2 = torch.topk(ref_last, 2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1])
+        same = torch.argmax(dec, -1) == torch.argmax(ref_last, -1)
+        decided = margin > tol_b
+        under_margin += int((~decided).sum())
+        assert bool(same[decided].all()), ("greedy token", i, err)
+        assert err <= tol_b, ("decode vs re-forward", i, err, tol_b)
+        worst = max(worst, err)
+        rows_b.append({"step": i, "max_abs_err": err,
+                       "min_top2_margin": float(margin.min()),
+                       "tokens_equal": int(same.sum())})
+    greedy = torch.cat(greedy, dim=1).cpu().numpy()
+    engine_tokens_equal = bool(np.array_equal(greedy, gen))
+    assert engine_tokens_equal, ("engine vs the same steps", greedy, gen)
+    decided_rows = steps * SERVE_B - under_margin
+    # a top-2 margin above 2^-4 of the largest logit: about a third of the
+    # rows at these random weights; fewer than 16 would leave (b) toothless
+    assert decided_rows >= 16, ("rows deciding the greedy token",
+                                decided_rows)
+    del caches, logits, toks
+
+    # (c) one prefill and four decode steps under the profiler; the idle
+    # share is against the same work's wall time without the profiler (the
+    # median of three runs: the host's clock is shared)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        wall0 = time.perf_counter()
+        eng.generate(batch, max_new=4)
+        walls.append(time.perf_counter() - wall0)
+    wall = float(np.median(walls))
+    wall0 = time.perf_counter()
+    _, prof = _profiled(lambda: eng.generate(batch, max_new=4))
+    wall_prof = time.perf_counter() - wall0
+    prof.update(wall_s=wall, wall_s_runs=walls,
+                wall_s_under_profiler=wall_prof,
+                device_idle_share=1.0 - prof["device_busy_s"] / wall)
+    for key in ("masked_first_fit_device_us_per_launch",
+                "segmented_rank_device_us_per_launch"):
+        prof.pop(key)
+
+    tokens_generated = SERVE_B * SERVE_NEW
+    out = {
+        "arch": cfg.name, "n_params": model.n_params(), "dtype": "bfloat16",
+        "batch": SERVE_B, "prompt": SERVE_PROMPT, "max_new": SERVE_NEW,
+        "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+        "decode_ms_per_step": stats.decode_s / SERVE_NEW * 1e3,
+        "tokens_per_s_per_sequence": stats.tokens_per_s,
+        "tokens_per_s": tokens_generated / stats.decode_s,
+        "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / stats.prefill_s,
+        "launches": {"flash_attention": launches},
+        "attention_plain_calls": plain_calls,
+        "max_memory_allocated": peak,
+        "check_a_prefill_kernel_vs_plain": {
+            "max_abs_err": err_a, "tolerance": tol_a,
+            "logits_max_abs": scale,
+            "tolerance_rule": "8 bf16 ulps at the largest logit"},
+        "check_b_decode_vs_reforward": {
+            "steps": rows_b, "max_abs_err": worst, "tolerance": tol_b,
+            "tolerance_rule": "2^-4 of the largest logit (8-16 bf16 ulps there)",
+            "rows": steps * SERVE_B, "rows_under_margin": under_margin,
+            "rows_deciding": decided_rows,
+            "engine_tokens_equal": engine_tokens_equal},
+        "profile_prefill_plus_4_decode": prof,
+        "sample_tokens": gen[0][:12].tolist()}
+    emit("serve", out)
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     smi = phase_env()
     ff, rk = phase_kernels()
@@ -836,6 +1110,8 @@ def main() -> None:
         "seed 1, 3 simulated days (horizon cut from 30)")
     fa, qz, dq = phase_fl_kernels()
     fl_launches = phase_fl_round()
+    flash_rows, flash_serve = phase_flash_kernels()
+    serve = phase_serve()
 
     print(smi, flush=True)
     src = "src/repro_torch/accel/kernels/csrc/"
@@ -885,7 +1161,24 @@ def main() -> None:
             ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
             bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
             library_ms=rows[0]["library_ms"], shape=shape))
-    tolerance = {"fedavg_reduce": 1e-6}   # its f32 rows (bf16: 2e-2, above)
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source=fl_src + "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:90",
+        launches=serve["launches"]["flash_attention"],
+        max_abs_err=max(r["max_abs_err"] for r in flash_rows
+                        if r["dtype"] == "float32"),
+        ms=flash_serve["ms"], plain_ms=flash_serve["plain_ms"],
+        bound_ms=flash_serve["bound_ms"], bound_by=flash_serve["bound_by"],
+        library_ms=flash_serve["library_ms"],
+        main_path_device_us_per_launch=serve[
+            "profile_prefill_plus_4_decode"][
+            "flash_kernel_device_us_per_launch"],
+        shape=f"B={SERVE_B} T=S={SERVE_PROMPT} H=32 Hkv=8 D=64 causal bf16",
+        bf16_max_abs_err=max(r["max_abs_err"] for r in flash_rows
+                             + [flash_serve] if r["dtype"] == "bfloat16")))
+    # f32 rows (fedavg_reduce's and flash_attention's bf16 rows: 2e-2, above)
+    tolerance = {"fedavg_reduce": 1e-6, "flash_attention": 2e-6}
     for k in kernels:
         assert k["launches"] > 0, k
         assert k["max_abs_err"] <= tolerance.get(k["name"], 0), k

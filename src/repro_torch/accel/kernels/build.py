@@ -2,9 +2,9 @@
 
 The sources are every ``*.cu`` of the two kernel directories,
 ``repro_torch/accel/kernels/csrc/`` (the scheduler's kernels) and
-``repro_torch/kernels/csrc/`` (the federated-learning kernels), one source
-list with unique file names.  Each is a plain-C-interface source (no PyTorch
-headers): it compiles in seconds with
+``repro_torch/kernels/csrc/`` (the federated-learning and attention
+kernels), one source list with unique file names.  Each is a
+plain-C-interface source (no PyTorch headers): it compiles in seconds with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/<hash>/<name>.so csrc/<name>.cu

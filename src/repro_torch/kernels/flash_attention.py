@@ -1,0 +1,209 @@
+"""Flash attention for prefill: causal, sliding-window or bidirectional, GQA.
+
+    q (B, T, H, D), k / v (B, S, Hkv, D) -> (B, T, H, D)
+
+with query positions ``q_offset + t`` and key positions ``s``: causal masks
+``rel = qpos - kpos < 0``, a window masks ``rel >= window``; masked scores are
+``NEG_INF = -2**30``; the softmax is the online one in f32; the output is
+``acc / max(l, 1e-30)`` in the input's dtype.
+
+Replaces the Pallas-TPU kernel ``repro/kernels/flash_attention.py::
+flash_attention`` with a CUDA C++ kernel for Hopper
+(``csrc/flash_attention.cu``): a CTA owns a ``(b, h, 64-query tile)`` and
+loops over 64-key tiles, skipping those masked for the whole tile; GQA by
+index, no expansion of K and V; ragged ``T`` and ``S`` bounds-checked;
+``head_dim`` in :data:`HEAD_DIMS`; f32 and bf16.  :func:`flash_attention_plain`
+beside it is the reference's ``chunked_attention`` (the same online softmax,
+over KV chunks) in plain torch ops: the CPU path, the model's route for the
+calls outside the kernel's function (gemma2's softcap, ``Dv != D``), and
+``chip_smoke.py``'s yardstick for the kernel on the card.
+
+**Contract**: every query row has at least one valid key.  On the serving
+path (``T == S``, ``q_offset == 0``) the diagonal always is; a call where some
+row would have none (a window that ends before the keys start, ``S == 0``,
+``q_offset < 0``) is refused with ``ValueError`` on both devices, since the
+kernel (which skips fully masked tiles) and the reference's kernel (which
+visits them) would give such a row different, meaningless values.
+
+Bound on an H100: operations, ``4·B·H·D`` a valid (query, key) pair — at the
+serve shape (``B 4, T = S = 1024, H 32, Hkv 8, D 64``, causal, bf16) 17.2
+GFLOP, 17.4 µs at 989 TFLOP/s, against 42 MB (12.5 µs) of bytes.
+
+A wrapper takes the plain version only for a tensor that lies on the CPU; for
+a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..accel.kernels import build
+
+NEG_INF = -2.0 ** 30  # large-negative in f32; avoids nan from (-inf) - (-inf)
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's head_dim instantiations
+
+launches = 0        # kernel launches made by this module's wrapper
+
+_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load_library("flash_attention")
+    fn = lib.venn_flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ensure_built() -> None:
+    _lib()
+
+
+def kv_repeat(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, T, Hkv, D) -> (B, T, H, D) by repeating each kv head H/Hkv times."""
+    hkv = kv.shape[2]
+    if hkv == n_heads:
+        return kv
+    return kv.repeat_interleave(n_heads // hkv, dim=2)
+
+
+def position_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+                  window: int) -> torch.Tensor:
+    """(Tq, Ck) validity mask from absolute positions."""
+    rel = qpos[:, None] - kpos[None, :]
+    m = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+    if causal:
+        m &= rel >= 0
+    if window > 0:
+        m &= rel < window
+    return m
+
+
+def rows_without_key(T: int, S: int, q_offset: int, causal: bool,
+                     window: int) -> bool:
+    """Whether some query row of a ``(T, S)`` call has no valid key.  Row
+    ``t`` sees keys ``max(0, qpos - window + 1)`` (with a window) to
+    ``min(S - 1, qpos)`` (causal); the last row has the latest first key,
+    the first row the earliest last one."""
+    if T == 0:
+        return False
+    if S == 0 or q_offset < 0:
+        return True
+    first = q_offset + T - window if window > 0 else 0
+    last = min(S - 1, q_offset) if causal else S - 1
+    return first > S - 1 or last < 0
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+        raise ValueError(
+            f"flash_attention: q (B, T, H, D) and k, v (B, S, Hkv, D) with "
+            f"H % Hkv == 0; got {tuple(q.shape)}, {tuple(k.shape)}, "
+            f"{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"flash_attention: q, k, v differ in dtype: "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0, attn_softcap: float = 0.0,
+                          kv_chunk: int = 2048) -> torch.Tensor:
+    """The reference's ``chunked_attention`` step for step, in plain torch
+    ops: keys padded to a multiple of the chunk and masked by position, one
+    online-softmax update a chunk, every chunk visited, f32 throughout.
+    Beyond the kernel's function it takes gemma2's ``attn_softcap`` and a
+    ``v`` of another head_dim (MLA's ``Dv``)."""
+    B, Tq, H, D = q.shape
+    Tk, Dv = k.shape[1], v.shape[-1]
+    k = kv_repeat(k, H)
+    v = kv_repeat(v, H)
+    scale = 1.0 / math.sqrt(D)
+    nchunk = max(1, math.ceil(Tk / kv_chunk))
+    c = Tk // nchunk if Tk % nchunk == 0 else kv_chunk
+    dev = q.device
+    if attn_softcap > 0:   # cap * tanh(s / cap): a true division on any device
+        cap = torch.full((), attn_softcap, dtype=torch.float32, device=dev)
+    qpos = q_offset + torch.arange(Tq, device=dev)
+    qf = q.to(torch.float32) * scale
+    m = torch.full((B, H, Tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Tq, Dv), dtype=torch.float32, device=dev)
+    for idx in range((Tk + c - 1) // c):
+        kb = k[:, idx * c:(idx + 1) * c].to(torch.float32)
+        vb = v[:, idx * c:(idx + 1) * c].to(torch.float32)
+        pad = c - kb.shape[1]
+        if pad:      # the padded keys: zeros, masked by position below
+            kb = torch.cat([kb, kb.new_zeros((B, pad, H, D))], dim=1)
+            vb = torch.cat([vb, vb.new_zeros((B, pad, H, Dv))], dim=1)
+        kpos = idx * c + torch.arange(c, device=dev)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        if attn_softcap > 0:
+            s = cap * torch.tanh(s / cap)
+        valid = position_mask(qpos, kpos, causal, window) & (kpos < Tk)[None]
+        s = torch.where(valid[None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)               # (B, Tq, H, Dv)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """``q`` ``(B, T, H, D)``, ``k`` / ``v`` ``(B, S, Hkv, D)`` ->
+    ``(B, T, H, D)`` in ``q``'s dtype (f32 or bf16 on the card)."""
+    global launches
+    _check_shapes(q, k, v)
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if rows_without_key(T, S, q_offset, causal, window):
+        raise ValueError(
+            f"flash_attention: some query row has no valid key (T={T}, S={S}, "
+            f"q_offset={q_offset}, causal={causal}, window={window}); the "
+            f"kernel's contract needs at least one")
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {D} is not one of the "
+                         f"kernel's {HEAD_DIMS}")
+    if q.dtype not in _BF16:
+        raise ValueError(f"flash_attention: dtype must be float32 or bfloat16 "
+                         f"on the card; got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention: {name} must be contiguous, 16-byte aligned "
+                f"and on {dev}; got {t.device}, contiguous="
+                f"{t.is_contiguous()}, data_ptr % 16 = {t.data_ptr() % 16}")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    fn = _lib().venn_flash_attention
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, T, S, H, Hkv, D, int(causal), int(window), int(q_offset),
+                  1.0 / math.sqrt(D), _BF16[q.dtype], stream)
+    launches += 1
+    build.check_launch(code, "flash_attention")
+    return out

@@ -1,12 +1,13 @@
-"""Public wrappers of the federated-learning kernels, with the reference's
-signatures (``repro/kernels/ops.py``) minus ``interpret``.
+"""Public wrappers of the kernels, with the reference's signatures
+(``repro/kernels/ops.py``) minus ``interpret``.
 
-The tiling arguments (``block_n``, ``block_k``, ``rows_per_tile``) shaped
-the TPU kernels' grids; the CUDA kernels choose their own launch shape, so
-here they are accepted and checked as the reference checks them — ``N %
-block == 0`` and ``rows % min(rows_per_tile, rows) == 0`` — and a call that
-fails there fails here.  On a CPU tensor each runs its plain version; on a
-CUDA tensor it launches its kernel or raises.
+The tiling arguments (``block_q``, ``block_k``, ``block_n``,
+``rows_per_tile``) shaped the TPU kernels' grids; the CUDA kernels choose
+their own launch shape, so here they are accepted and checked as the
+reference checks them — ``T % min(block_q, T) == 0``, ``N % block == 0``,
+``rows % min(rows_per_tile, rows) == 0`` — and a call that fails there fails
+here.  On a CPU tensor each runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Tuple
 import torch
 
 from . import fedavg_reduce as _fedavg
+from . import flash_attention as _flash
 from . import quantize as _quant
 
 
@@ -26,6 +28,19 @@ def _check_tiles(name: str, n: int, block: int, rows_per_tile: int) -> None:
     if rows and (rt <= 0 or rows % rt):
         raise ValueError(f"{name}: {rows} rows do not split into tiles of "
                          f"{rt}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q: (B, T, H, D); k/v: (B, S, Hkv, D) -> (B, T, H, D)."""
+    _flash._check_shapes(q, k, v)
+    T, S = q.shape[1], k.shape[1]
+    bq, bk = min(block_q, T), min(block_k, S)
+    if bq <= 0 or bk <= 0 or T % bq or S % bk:
+        raise ValueError(f"flash_attention: T = {T} and S = {S} must be "
+                         f"multiples of the blocks {bq}, {bk}")
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def fedavg_reduce(updates: torch.Tensor, weights: torch.Tensor, *,

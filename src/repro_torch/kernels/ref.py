@@ -5,13 +5,43 @@ Each is the function with no tiling or layout: the CPU tests hold it against
 the JAX reference's oracles (``repro/kernels/ref.py``) and Pallas kernels,
 and ``chip_smoke.py`` holds each CUDA kernel against it on the card.  On the
 card they run nowhere else on the path (the one exception is
-``aggregate_deltas``'s own ``min_kernel_size`` rule).
+``aggregate_deltas``'s own ``min_kernel_size`` rule).  Flash attention's
+oracle is here too; the plain version ``chip_smoke.py`` times beside its
+kernel, the same online softmax, is in :mod:`.flash_attention`.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, T, H, D); k/v: (B, S, Hkv, D).  GQA by head repetition; a
+    ``-inf`` mask, a softmax, fully masked rows (NaN) set to 0."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+        v = v.repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
+                     k.to(torch.float32))
+    s = s / torch.full((), math.sqrt(D), dtype=torch.float32,
+                       device=s.device)
+    rel = (torch.arange(T, device=q.device)[:, None]
+           - torch.arange(S, device=q.device)[None, :])
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= rel >= 0
+    if window > 0:
+        mask &= rel < window
+    s = torch.where(mask[None, None], s, torch.full_like(s, -math.inf))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), torch.zeros_like(p), p)
+    o = torch.einsum("bhts,bshd->bthd", p, v.to(torch.float32))
+    return o.to(q.dtype)
 
 
 def normalized_weights(weights: torch.Tensor) -> torch.Tensor:

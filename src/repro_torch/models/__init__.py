@@ -1,6 +1,6 @@
-"""Model parameter declarations (specs, block programs, init) and the
-carrying of parameter trees across from the JAX reference.  The forwards
-come with the model slice."""
+"""Models: parameter declarations (specs, block programs, init), the
+carrying of parameter trees across from the JAX reference, and the forwards
+of the dense and audio configurations (full sequence, prefill, decode)."""
 from .common import DTYPES, ParamSpec, count_params, is_spec, materialize, spec
 from .convert import params_from_jax, params_to_numpy
 from .model import Model, build_model

@@ -7,7 +7,15 @@ Homogeneous stacks (llama, qwen, mixtral, mamba2, hubert) have period 1;
 gemma2 repeats (local, global) pairs; llama-vision 5-layer periods with one
 cross-attention layer; jamba 8-layer periods (1 attention : 7 mamba, MoE
 every 2nd); deepseek has a 3-layer dense prefix group before the MoE group.
-The layer forwards come with the model slice.
+
+The layer forwards — full sequence (:func:`apply_layer`), prefill with its
+decode cache (:func:`apply_layer_prefill`) and one decode step
+(:func:`apply_layer_decode`) — cover ``mixer == "attn"`` without MLA and
+``ffn == "mlp"``: every dense and audio configuration (llama3.2-1b,
+qwen3-32b's qk-norm, stablelm-1.6b's LayerNorm and partial rotary,
+gemma2-27b's local/global layers, softcaps and sandwich norms, hubert-xlarge
+bidirectional).  Mamba, cross-attention, MoE and MLA raise
+``NotImplementedError`` until they are ported (ROADMAP 1.11).
 """
 from __future__ import annotations
 
@@ -17,8 +25,9 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from .common import ParamSpec, spec
-from .ffn import gated_mlp_specs, mlp_specs
+from .attention import chunked_attention, decode_attention
+from .common import ParamSpec, apply_rope, layer_norm, rms_norm, spec
+from .ffn import gated_mlp, gated_mlp_specs, mlp, mlp_specs
 from .mamba import mamba_specs
 from .moe import moe_specs
 
@@ -164,3 +173,192 @@ def layer_specs(desc: LayerDesc, cfg: ModelConfig) -> Dict[str, Any]:
         s["router_bias"] = spec((cfg.n_experts,), (None,), dtype=torch.float32,
                                 init="zeros")
     return s
+
+
+# --------------------------------------------------------------- forward
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP 1.11: the "
+        f"forwards still missing)")
+
+
+def _check_ported(desc: LayerDesc, cfg: ModelConfig) -> None:
+    if desc.mixer == "attn" and cfg.use_mla:
+        raise _not_ported("MLA attention (mla_attention, mla_decode)")
+    if desc.mixer == "mamba":
+        raise _not_ported("the Mamba-2 mixer")
+    if desc.mixer == "cross":
+        raise _not_ported("cross-attention")
+    if desc.ffn == "moe":
+        raise _not_ported("the MoE feed-forward")
+
+
+def _apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["g"], p["b"], cfg.norm_eps)
+    return rms_norm(x, p["g"], cfg.norm_eps, plus_one=cfg.rms_plus_one)
+
+
+def _positions(start: int, n: int, device: torch.device) -> torch.Tensor:
+    return (start + torch.arange(n, device=device))[None, :]
+
+
+def _gqa_attention(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                   desc: LayerDesc, q_offset: int) -> torch.Tensor:
+    B, T, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, _positions(q_offset, T, x.device))
+    o = chunked_attention(q, k, v, causal=desc.causal, window=desc.window,
+                          attn_softcap=cfg.attn_softcap, kv_chunk=cfg.kv_chunk)
+    return o.reshape(B, T, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+def apply_layer(lp: Dict[str, Any], x: torch.Tensor, desc: LayerDesc,
+                cfg: ModelConfig, *, q_offset: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence (train/prefill) layer.  Returns (x, aux_loss)."""
+    _check_ported(desc, cfg)
+    if desc.mixer == "attn":
+        x = x + _gqa_mixer(lp, x, cfg, desc, q_offset)
+    return _apply_ffn(lp, x, desc, cfg)
+
+
+def _gqa_mixer(lp, x, cfg, desc, q_offset):
+    h = _apply_norm(lp["ln_attn"], x, cfg)
+    o = _gqa_attention(lp["attn"], h, cfg, desc, q_offset)
+    if cfg.post_norm:
+        o = _apply_norm(lp["ln_attn_post"], o, cfg)
+    return o
+
+
+# ------------------------------------------------------- prefill (w/ caches)
+
+def _qkv(p, x, cfg, rope_pos):
+    B, T, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, T, h, dh)
+    k = (x @ p["wk"]).reshape(B, T, hkv, dh)
+    v = (x @ p["wv"]).reshape(B, T, hkv, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    rd = int(cfg.rotary_pct * dh)
+    q = apply_rope(q, rope_pos, cfg.rope_theta, rotary_dim=rd)
+    k = apply_rope(k, rope_pos, cfg.rope_theta, rotary_dim=rd)
+    return q, k, v
+
+
+def _window_tail(k: torch.Tensor, window: int) -> torch.Tensor:
+    """Seed a ring cache from prefill: absolute position p lives at slot
+    p % window, matching decode's ``cache_len % window`` write index.  For
+    T < window, positions sit at their own index (pad right); otherwise the
+    last `window` tokens are rolled so slot alignment is preserved for any
+    T (not just multiples of the window)."""
+    T = k.shape[1]
+    if T < window:
+        pad = k.new_zeros((k.shape[0], window - T, *k.shape[2:]))
+        return torch.cat([k, pad], dim=1)
+    tail = k[:, T - window:]
+    return torch.roll(tail, T % window, dims=1)
+
+
+def apply_layer_prefill(lp: Dict[str, Any], x: torch.Tensor, desc: LayerDesc,
+                        cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Like apply_layer but also emits this layer's decode cache."""
+    _check_ported(desc, cfg)
+    cache: Dict[str, Any] = {}
+    if desc.mixer == "attn":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        B, T, _ = x.shape
+        q, k, v = _qkv(lp["attn"], h, cfg, _positions(0, T, x.device))
+        o = chunked_attention(q, k, v, causal=desc.causal, window=desc.window,
+                              attn_softcap=cfg.attn_softcap,
+                              kv_chunk=cfg.kv_chunk)
+        o = o.reshape(B, T, -1) @ lp["attn"]["wo"]
+        if desc.window > 0:
+            cache = {"k": _window_tail(k, desc.window),
+                     "v": _window_tail(v, desc.window)}
+        else:
+            cache = {"k": k, "v": v}
+        if cfg.post_norm:
+            o = _apply_norm(lp["ln_attn_post"], o, cfg)
+        x = x + o
+    x, _ = _apply_ffn(lp, x, desc, cfg)
+    return x, cache
+
+
+def _apply_ffn(lp, x, desc, cfg):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if desc.ffn == "mlp":
+        h = _apply_norm(lp["ln_mlp"], x, cfg)
+        h = (mlp(lp["mlp"], h, "gelu") if cfg.norm == "layernorm"
+             else gated_mlp(lp["mlp"], h, cfg.act))
+        if cfg.post_norm:
+            h = _apply_norm(lp["ln_mlp_post"], h, cfg)
+        x = x + h
+    return x, aux
+
+
+# ---------------------------------------------------------------- decode
+
+def cache_specs(desc: LayerDesc, cfg: ModelConfig, batch: int, seq: int
+                ) -> Dict[str, Any]:
+    """ParamSpec-style declaration of one layer's decode cache (the same
+    shapes, axes and dtypes as the reference's, every mixer included)."""
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    dt = torch.bfloat16
+    if desc.mixer == "attn":
+        if cfg.use_mla:
+            return {"lat": spec((batch, seq, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                                ("batch", "kv_seq", None), dtype=dt)}
+        s = min(seq, desc.window) if desc.window > 0 else seq
+        return {"k": spec((batch, s, hkv, dh), ("batch", "kv_seq", "kv_heads", None), dtype=dt),
+                "v": spec((batch, s, hkv, dh), ("batch", "kv_seq", "kv_heads", None), dtype=dt)}
+    if desc.mixer == "cross":
+        return {"k": spec((batch, cfg.vision_seq, hkv, dh), ("batch", None, "kv_heads", None), dtype=dt),
+                "v": spec((batch, cfg.vision_seq, hkv, dh), ("batch", None, "kv_heads", None), dtype=dt)}
+    if desc.mixer == "mamba":
+        H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+        W = 4
+        return {"ssm": spec((batch, H, N, P), ("batch", "kv_heads", None, None), dtype=torch.float32),
+                "cx": spec((batch, W - 1, H * P), ("batch", None, "heads_mlp"), dtype=dt),
+                "cb": spec((batch, W - 1, G * N), ("batch", None, None), dtype=dt),
+                "cc": spec((batch, W - 1, G * N), ("batch", None, None), dtype=dt)}
+    return {}
+
+
+def apply_layer_decode(lp: Dict[str, Any], x: torch.Tensor, desc: LayerDesc,
+                       cfg: ModelConfig, cache: Dict[str, Any],
+                       cache_len: int
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Single-token decode.  x: (B, 1, D); cache_len: int = #tokens so far.
+
+    The new key and value are written into ``cache``'s tensors in place (the
+    reference's ``dynamic_update_slice`` returns new arrays); the returned
+    cache holds the same tensors."""
+    _check_ported(desc, cfg)
+    B = x.shape[0]
+    cache_len = int(cache_len)
+    if desc.mixer == "attn":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        q, k, v = _qkv(lp["attn"], h, cfg, _positions(cache_len, 1, x.device))
+        kc, vc = cache["k"], cache["v"]
+        S = kc.shape[1]
+        idx = cache_len % S if desc.window > 0 else cache_len
+        if not 0 <= idx < S:
+            raise ValueError(f"apply_layer_decode: position {idx} is outside "
+                             f"the cache's {S} slots")
+        kc[:, idx] = k[:, 0]
+        vc[:, idx] = v[:, 0]
+        n_valid = min(cache_len + 1, S)
+        o = decode_attention(q, kc, vc, cache_len=n_valid,
+                             attn_softcap=cfg.attn_softcap)
+        o = o.reshape(B, 1, -1) @ lp["attn"]["wo"]
+        cache = {"k": kc, "v": vc}
+        if cfg.post_norm:
+            o = _apply_norm(lp["ln_attn_post"], o, cfg)
+        x = x + o
+    x, _ = _apply_ffn(lp, x, desc, cfg)
+    return x, cache

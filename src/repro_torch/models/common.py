@@ -6,17 +6,24 @@ names** per dimension ("embed", "heads", "mlp", "experts", ...), as in the
 JAX reference (``repro/models/common.py``).  :func:`materialize` turns a spec
 tree into real tensors on a device from a ``torch.Generator``, with the
 reference's init kinds and std rule; the numbers differ from
-``jax.random``'s, the distributions do not.
+``jax.random``'s, the distributions do not.  :func:`abstract_params` gives
+the same tree as ``meta`` tensors, the counterpart of the reference's
+``ShapeDtypeStruct`` objects.
 
-Norms, RoPE, ``softcap`` and the activations come with the model forwards.
+The layers the forwards share follow: RMSNorm and LayerNorm with f32
+accumulation, RoPE (partial rotary too), gemma-2's ``softcap`` and the
+activations.  A plain path that divides by a Python scalar on the card gets
+a reciprocal multiply from torch, one ulp off a true division in places; the
+divisions here are by tensors.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import tree as tree_util
 
@@ -83,7 +90,90 @@ def materialize(tree: Any, generator: torch.Generator,
     return tree_map_specs(one, tree)
 
 
+def abstract_params(tree: Any) -> Any:
+    """The spec tree as ``meta`` tensors: shapes and dtypes, no storage."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
+
+
 def count_params(tree: Any) -> int:
     return sum(math.prod(s.shape)
                for s in tree_util.leaves(tree, is_leaf=is_spec)
                if isinstance(s, ParamSpec))
+
+
+# -------------------------------------------------------------------- layers
+
+def _const(x: torch.Tensor, value: float,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``value`` as a 0-d tensor on ``x``'s device: a divisor that torch
+    divides by truly on the card (a Python scalar becomes a reciprocal
+    multiply there).  Made by a fill on the device, not copied from the
+    host: ``torch.tensor(value, device=...)`` is a blocking copy that
+    waits for the device's queue, once a layer."""
+    return torch.full((), value, dtype=dtype, device=x.device)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32 accumulation (gemma-style optional (1+g) scaling)."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    g = gamma.to(torch.float32)
+    y = y * (1.0 + g) if plus_one else y * g
+    return y.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.to(torch.float32)
+            + beta.to(torch.float32)).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    idx = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (idx / _const(idx, head_dim)))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
+               rotary_dim: Optional[int] = None) -> torch.Tensor:
+    """Rotary embedding on the last dim; supports partial rotary (stablelm).
+
+    x: (..., T, H, D) or (..., T, D); positions: broadcastable to (..., T).
+    """
+    d = x.shape[-1]
+    rd = rotary_dim or d
+    xr, xp = x[..., :rd], x[..., rd:]
+    freqs = rope_freqs(rd, theta, x.device)                   # (rd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs      # (..., T, rd/2)
+    while ang.dim() < x.dim():                                # add head dim
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1 = xr[..., 0::2].to(torch.float32)
+    x2 = xr[..., 1::2].to(torch.float32)
+    o1, o2 = x1 * cos - x2 * sin, x2 * cos + x1 * sin
+    rot = torch.stack([o1, o2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([rot, xp], dim=-1) if rd < d else rot
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap), ``x / cap`` a true
+    division (by a tensor, on any device)."""
+    if cap <= 0:
+        return x
+    c = _const(x, cap, x.dtype)
+    return c * torch.tanh(x / c)
+
+
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu,
+    # the reference's jax.nn.gelu(approximate=True)
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}

@@ -1,23 +1,47 @@
-"""Model: embeds + stacked block groups + head — the parameter half.
+"""Model: embeds + stacked block groups + head, with the full-sequence,
+prefill and decode entry points the server and the trainer share.
 
 ``param_specs`` declares the same tree as the JAX reference
 (``repro/models/model.py``): the same keys, shapes, dtypes, logical axes and
 init rules, so one configuration counts the same parameters in both
 packages and a parameter tree carries across (:mod:`.convert`).
-``init_params`` materialises it on a device.  The forward, prefill and
-decode entry points come with the model slice.
+``init_params`` materialises it on a device.
+
+Entry points (functions of parameter trees, as in the reference):
+
+* ``forward(params, batch)``     — full-sequence logits (and MoE aux)
+* ``loss_fn(params, batch)``     — token cross-entropy (forward only: its
+  gradient comes with the training slice)
+* ``prefill(params, batch)``     — last-position logits + decode caches
+* ``decode_step(params, caches, token, cache_len)``
+
+A group's layers are stacked on a leading ``count`` axis, as the reference
+scans them; here a Python loop walks the layers, taking each layer's
+parameters (and cache) as views of the stacked tensors.  Caches keep the
+reference's tree — one dict a group, stacked leaves ``(count, B, S, Hkv,
+D)`` — so they compare leaf by leaf; ``decode_step`` writes into them in
+place.  Dense and audio families only for now (:mod:`.blocks`).
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
+from .. import tree as tree_util
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from .blocks import BlockGroup, block_groups, layer_specs
-from .common import count_params, is_spec, materialize, spec, stack_specs
+from .blocks import (BlockGroup, apply_layer, apply_layer_decode,
+                     apply_layer_prefill, block_groups, cache_specs,
+                     layer_specs)
+from .common import (abstract_params, count_params, is_spec, layer_norm,
+                     materialize, rms_norm, softcap, spec, stack_specs)
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i``'s slice (views) of a tree of stacked tensors."""
+    return tree_util.map(lambda t: t[i], tree)
 
 
 class Model:
@@ -80,6 +104,132 @@ class Model:
                 n = n * cfg.top_k // max(cfg.n_experts, 1)
             total += n
         return total
+
+    # ------------------------------------------------------------ forward
+
+    def _embed(self, params, batch):
+        cfg = self.cfg
+        if cfg.family == "audio":
+            x = batch["frames"].to(params["frontend"]["w"].dtype)
+            x = x @ params["frontend"]["w"] + params["frontend"]["b"]
+        else:
+            x = params["embed"][batch["tokens"].long()]
+            if cfg.rms_plus_one:                      # gemma-style embed scale
+                x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                                   device=x.device)
+        return x
+
+    def _head(self, params, x):
+        cfg = self.cfg
+        if cfg.norm == "layernorm":
+            x = layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"],
+                           cfg.norm_eps)
+        else:
+            x = rms_norm(x, params["ln_f"]["g"], cfg.norm_eps,
+                         plus_one=cfg.rms_plus_one)
+        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        return softcap(x @ w, cfg.logit_softcap)
+
+    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence logits.  Returns (logits, aux_loss)."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for gi, g in enumerate(self.groups):
+            blocks = params[f"blocks{gi}"]
+            for c in range(g.count):
+                lp = _layer(blocks, c)
+                for i, desc in enumerate(g.descs):
+                    x, a = apply_layer(lp[f"l{i}"], x, desc, cfg)
+                    aux_total = aux_total + a
+        return self._head(params, x), aux_total
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean token cross-entropy (+ 0.01 · aux) in f32; no gradient
+        path is promised yet (the training slice)."""
+        logits, aux = self.forward(params, batch)
+        logits32 = logits.to(torch.float32)
+        lse = torch.logsumexp(logits32, dim=-1)
+        gold = torch.gather(logits32, -1,
+                            batch["labels"].long()[..., None])[..., 0]
+        return (lse - gold).mean() + 0.01 * aux
+
+    # ------------------------------------------------------------ serving
+
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, List[Any]]:
+        """Returns (last-position logits, caches: one stacked tree/group)."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        caches: List[Any] = []
+        for gi, g in enumerate(self.groups):
+            blocks = params[f"blocks{gi}"]
+            per_layer = []
+            for c in range(g.count):
+                lp = _layer(blocks, c)
+                cs = {}
+                for i, desc in enumerate(g.descs):
+                    x, cs[f"l{i}"] = apply_layer_prefill(lp[f"l{i}"], x, desc,
+                                                         cfg)
+                per_layer.append(cs)
+            caches.append(tree_util.map(lambda *ts: torch.stack(ts),
+                                        *per_layer))
+            del per_layer
+        logits = self._head(params, x[:, -1:, :])
+        return logits, caches
+
+    def decode_step(self, params, caches, token, cache_len: int
+                    ) -> Tuple[torch.Tensor, List[Any]]:
+        """One decode step.  token: (B, 1) integer; cache_len: int.  The
+        caches are updated in place and returned."""
+        cfg = self.cfg
+        x = self._embed(params, {"tokens": token})
+        for gi, g in enumerate(self.groups):
+            blocks, cache = params[f"blocks{gi}"], caches[gi]
+            for c in range(g.count):
+                lp, lc = _layer(blocks, c), _layer(cache, c)
+                for i, desc in enumerate(g.descs):
+                    x, _ = apply_layer_decode(lp[f"l{i}"], x, desc, cfg,
+                                              lc[f"l{i}"], cache_len)
+        return self._head(params, x), caches
+
+    # -------------------------------------------------------------- specs
+
+    def cache_param_specs(self, batch: int, seq: int) -> List[Any]:
+        """ParamSpec tree of decode caches (stacked per group)."""
+        out = []
+        for g in self.groups:
+            block = {f"l{i}": cache_specs(d, self.cfg, batch, seq)
+                     for i, d in enumerate(g.descs)}
+            out.append(stack_specs(block, g.count))
+        return out
+
+    def input_specs(self, seq_len: int, global_batch: int, kind: str
+                    ) -> Dict[str, Any]:
+        """``meta`` tensors for the chosen entry point's inputs (the
+        reference's ShapeDtypeStructs: shapes and dtypes, no storage)."""
+        cfg = self.cfg
+        B, T = global_batch, seq_len
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        ii, bf = torch.int32, torch.bfloat16
+        if kind in ("train", "prefill"):
+            if cfg.family == "audio":
+                batch = {"frames": meta((B, T, cfg.frontend_dim), bf)}
+            else:
+                batch = {"tokens": meta((B, T), ii)}
+            if kind == "train":
+                batch["labels"] = meta((B, T), ii)
+            if cfg.family == "vlm":
+                batch["vision_embeds"] = meta(
+                    (B, cfg.vision_seq, cfg.vision_dim), bf)
+            return batch
+        if kind == "decode":
+            caches = [abstract_params(c) for c in self.cache_param_specs(B, T)]
+            return {"token": meta((B, 1), ii), "cache_len": meta((), ii),
+                    "caches": caches}
+        raise ValueError(kind)
 
 
 def _iter_with_path(tree, prefix=""):

@@ -42,13 +42,18 @@ def test_package_has_the_expected_modules():
                  "repro_torch.kernels.quantize",
                  "repro_torch.train.optimizer",
                  "repro_torch.fed.compression",
-                 "repro_torch.fed.aggregation"):
+                 "repro_torch.fed.aggregation",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.models.attention", "repro_torch.serve",
+                 "repro_torch.serve.engine", "repro_torch.launch",
+                 "repro_torch.launch.serve"):
         assert name in MODULES, name
     csrc = PKG / "accel" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",
                                                    "segmented_rank.cu"}
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"fedavg_reduce.cu",
+                                                   "flash_attention.cu",
                                                    "quantize.cu"}
 
 
@@ -83,7 +88,7 @@ def test_kernel_sources_are_cuda_with_a_plain_c_interface():
     from repro_torch.accel.kernels import build
     cus = [cu for d in (PKG / "accel" / "kernels" / "csrc",
                         PKG / "kernels" / "csrc") for cu in d.glob("*.cu")]
-    assert len(cus) == 4
+    assert len(cus) == 5
     for cu in cus:
         text = cu.read_text()
         assert "__global__" in text and 'extern "C"' in text, cu.name

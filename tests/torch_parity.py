@@ -5,8 +5,11 @@ reference ``repro`` and the port ``repro_torch`` — as plain arrays; the port
 runs with ``device="cpu"``.
 """
 import math
+import sys
+import types
 
 import numpy as np
+import pytest
 import torch
 
 # xdist workers import torch and JAX together: keep torch's intra-op pool
@@ -81,3 +84,50 @@ def assert_mirror_equals(port_state, ref_state) -> None:
     assert got["kcap"] == want["kcap"]
     assert port_state.d_cand_req.dtype == torch.int32
     assert port_state.d_cand_lo.dtype == torch.float64
+
+
+@pytest.fixture
+def reference_dist(monkeypatch):
+    """The reference's ``Model._head`` and ``Model.forward`` import
+    ``repro.dist.sharding.logical_constraint``, and ``repro.dist`` is not in
+    the repository.  For one test only, register a module of that name
+    whose ``logical_constraint`` returns its argument — exactly what the
+    constraint is on one device — so the reference's own entry points
+    (``Model.forward``, ``prefill``, ``decode_step``, ``Engine.generate``)
+    run unedited.  ``monkeypatch`` removes it after the test, so nothing
+    leaks into other test files on the same worker."""
+    import repro
+    dist = types.ModuleType("repro.dist")
+    sharding = types.ModuleType("repro.dist.sharding")
+    sharding.logical_constraint = lambda x, *axes: x
+    dist.sharding = sharding
+    monkeypatch.setitem(sys.modules, "repro.dist", dist)
+    monkeypatch.setitem(sys.modules, "repro.dist.sharding", sharding)
+    monkeypatch.setattr(repro, "dist", dist, raising=False)
+    yield sharding
+
+
+# the dense and audio configurations the port's forwards cover
+FORWARD_ARCHS = ("llama3.2-1b", "qwen3-32b", "stablelm-1.6b", "gemma2-27b",
+                 "hubert-xlarge")
+
+
+def reduced_pair(arch, seed=0, **overrides):
+    """The reduced configuration of ``arch`` at f32 in both packages, its
+    two models, and the reference's seeded parameters cast to f32 with
+    the port's copy of them on the CPU:
+    ``(jcfg, jmodel, jparams, cfg, model, params)``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jget_config
+    from repro.models.model import build_model as jbuild_model
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_from_jax
+    kw = dict(dtype="float32", **overrides)
+    jcfg = jget_config(arch).reduced().with_(**kw)
+    cfg = get_config(arch).reduced().with_(**kw)
+    jmodel = jbuild_model(jcfg)
+    jparams = jax.tree.map(lambda x: x.astype(jnp.float32),
+                           jmodel.init_params(jax.random.PRNGKey(seed)))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), CPU)
+    return jcfg, jmodel, jparams, cfg, build_model(cfg), params
