@@ -16,13 +16,17 @@ federated-learning kernels (``fedavg_reduce``, ``quantize``,
 (``fl_kernel_checks``), and two rounds of three jobs under one Venn
 scheduler, job 0 llama3.2-1b at full width (1 235 814 400 parameters): each
 granted client's seeded delta compressed to int8 and back, aggregated and
-applied by FedAdam (``fl_round``).  Then serving: the flash-attention kernel
-against its plain version at the reference's test shapes, ragged lengths, a
-query offset and the serve shape (``flash_kernel_checks``), and
-llama3.2-1b at full width serving four prompts of 1024 tokens for 32 new
-tokens through ``Engine.generate``, its prefill's attention in the kernel,
-checked against a prefill on the plain version and against full re-forwards
-(``serve``).  It imports ``repro_torch`` only.
+applied by FedAdam (``fl_round``).  Then serving: the two flash-attention
+kernels — the tensor-core one (``wgmma``, bf16) and
+the FMA one (f32), each row naming its route —
+against their plain version at the reference's test shapes, ragged lengths,
+a query offset and the serve shape, where the tensor-core kernel, the FMA
+kernel on the same inputs, the plain version and SDPA are timed in turns
+(``flash_kernel_checks``); and llama3.2-1b at full width serving four
+prompts of 1024 tokens for 32 new tokens through ``Engine.generate``, its
+prefill's attention in the tensor-core kernel, checked against a prefill on
+the plain version and against full re-forwards (``serve``).  It imports
+``repro_torch`` only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
 ``main_path``, ``dense_path``, ``fl_kernel_checks``, ``fl_round_setup``,
@@ -397,7 +401,8 @@ def _profiled(run):
             "top_device_rows": [{"name": e.key[:80], "count": e.count,
                                  "device_s": e.self_device_time_total / 1e6}
                                 for e in top[:12]]}
-    for name in ("masked_first_fit", "segmented_rank", "flash_kernel"):
+    for name in ("masked_first_fit", "segmented_rank", "flash_kernel",
+                 "flash_wgmma_kernel"):
         mine = [e for e in rows if name in e.key]
         prof[name + "_device_us_per_launch"] = \
             sum(e.self_device_time_total for e in mine) \
@@ -566,14 +571,22 @@ def check_quant(N, block, seed, timed, nan_block=None):
                              batches=3),
             library_ms=None, bound_bytes=nbytes, bound_ms=bound,
             bound_by="bytes")
+        # one PyTorch call for the same function: int8 x f32 promotes to f32
+        def lib():
+            return torch.mul(q.view(-1, block), s[:, None])
+        d = fl_ops.dequantize(q, s, block=block, rows_per_tile=1)
+        lib_bit_equal = bool(torch.equal(_bits(lib().view(-1)), _bits(d)))
         row_d.update(
             ms=time_ms(lambda: fl_ops.dequantize(q, s, block=block,
                                                  rows_per_tile=1), reps=20,
                        batches=3),
             plain_ms=time_ms(lambda: fl_ref.dequantize_ref(q, s, block),
                              reps=3, batches=3),
-            library_ms=None, bound_bytes=nbytes, bound_ms=bound,
-            bound_by="bytes", dtype="float32")
+            library_ms=time_ms(lib, reps=20, batches=3),
+            library="torch.mul(codes.view(-1, block), scales[:, None])",
+            library_bit_equal=lib_bit_equal, bound_bytes=nbytes,
+            bound_ms=bound, bound_by="bytes", dtype="float32")
+        del d
     return row_q, row_d
 
 
@@ -887,7 +900,8 @@ def check_flash(B, T, S, H, Hkv, D, causal, window, q_offset, dtype, seed,
                         window, q_offset, dtype, err)
     row = {"B": B, "T": T, "S": S, "H": H, "Hkv": Hkv, "D": D,
            "causal": causal, "window": window, "q_offset": q_offset,
-           "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+           "dtype": str(dtype).removeprefix("torch."),
+           "route": flash_mod.flash_route(dtype, D), "max_abs_err": err,
            "tolerance": tol}
     if timed:
         pairs = B * H * _valid_pairs(T, S, causal, window, q_offset)
@@ -902,17 +916,67 @@ def check_flash(B, T, S, H, Hkv, D, causal, window, q_offset, dtype, seed,
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
         lib_err = float((sdpa().transpose(1, 2).float() - want.float())
                         .abs().max())
+        # the FMA kernel on the same inputs, through its C entry (a
+        # comparison launch: not counted)
+        out_fma = torch.empty_like(q)
+        fma_entry = flash_mod.entry("fma")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def fma():
+            build.check_launch(fma_entry(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out_fma.data_ptr(),
+                B, T, S, H, Hkv, D, int(causal), window, q_offset,
+                1.0 / math.sqrt(D), int(dtype == torch.bfloat16), stream),
+                "flash_attention (fma)")
+        fma()
+        torch.cuda.synchronize()
+        fma_err = float((out_fma.float() - want.float()).abs().max())
+        ms = time_interleaved({
+            "kernel": lambda: flash_mod.flash_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset),
+            "fma": fma,
+            "plain": lambda: flash_mod.flash_attention_plain(
+                q, k, v, causal=causal, window=window, q_offset=q_offset),
+            "library": sdpa},
+            reps={"kernel": 20, "fma": 20, "plain": 5, "library": 20})
+        bound = max(t_ops, t_bytes)
         row.update(
-            ms=time_ms(lambda: flash_mod.flash_attention(
-                q, k, v, causal=causal, window=window), reps=20, batches=3),
-            plain_ms=time_ms(lambda: flash_mod.flash_attention_plain(
-                q, k, v, causal=causal, window=window), reps=5, batches=3),
-            library_ms=time_ms(sdpa, reps=20, batches=3),
+            ms=ms["kernel"], fma_ms=ms["fma"], plain_ms=ms["plain"],
+            library_ms=ms["library"], timing_runs=ms["runs"],
             library="scaled_dot_product_attention(is_causal, enable_gqa)",
-            library_max_abs_err=lib_err, bound_flops=flops,
-            bound_bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
+            library_max_abs_err=lib_err, fma_max_abs_err=fma_err,
+            bound_flops=flops, bound_bytes=nbytes, bound_ms=bound,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            tflops=flops / ms["kernel"] / 1e9,
+            fma_tflops=flops / ms["fma"] / 1e9,
+            share_of_bound=bound / ms["kernel"],
+            fma_over_kernel=ms["fma"] / ms["kernel"])
     return row
+
+
+def time_interleaved(fns: dict, reps: dict, rounds: int = 3) -> dict:
+    """Each function timed as by :func:`time_ms` (one batch of ``reps``),
+    in turns A B .. B A, ``rounds`` times; the median for each, and every
+    reading under ``"runs"``."""
+    names = list(fns)
+    runs = {n: [] for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            runs[n].append(time_ms(fns[n], reps=reps[n], batches=1))
+    out = {n: statistics.median(v) for n, v in runs.items()}
+    out["runs"] = runs
+    return out
+
+
+def _ptxas(source: str) -> list:
+    """``nvcc -Xptxas -v``'s lines for one source of this process's build."""
+    for sec in build.build_log.split("== ")[1:]:
+        name, _, body = sec.partition("\n")
+        if name.strip() == source:
+            return [ln.strip() for ln in body.splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln or "warning" in ln]
+    return []
 
 
 def phase_flash_kernels():
@@ -928,11 +992,28 @@ def phase_flash_kernels():
             rows.append(check_flash(*case, dt, 200 + i))
     serve = check_flash(SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 64, True,
                         0, 0, torch.bfloat16, 300, timed=True)
+    assert serve["route"] == "wgmma", serve
+    smem_of = build.load_library(
+        "flash_attention_wgmma").venn_flash_attention_wgmma_smem
+    smem = {d: smem_of(d) for d in flash_mod.HEAD_DIMS}
+    wgmma_build = {"ptxas": _ptxas("flash_attention_wgmma.cu"),
+                   "dynamic_smem_bytes": smem}
+    assert min(smem.values()) > 0, smem
+    bf16_err = {}
+    for r in rows + [serve]:
+        if r["dtype"] == "bfloat16":
+            key = (f"B{r['B']} T{r['T']} S{r['S']} H{r['H']}/{r['Hkv']} "
+                   f"D{r['D']} c{int(r['causal'])} w{r['window']} "
+                   f"o{r['q_offset']} {r['route']}")
+            bf16_err[key] = r["max_abs_err"]
     emit("flash_kernel_checks", {
-        "rows": rows, "serve_shape": serve,
+        "rows": rows, "serve_shape": serve, "wgmma_build": wgmma_build,
+        "bf16_max_abs_err_by_shape": bf16_err,
         "tolerance": "2e-6 f32, 2e-2 bf16 (max abs) against the plain "
                      "version; f32 oracles without TF32",
-        "timing": "median of 3 batches of back-to-back launches, CUDA events"})
+        "timing": "serve shape: kernel, FMA kernel, plain, SDPA in turns "
+                  "(A B C D D C B A, 3 rounds), each a batch of back-to-back "
+                  "launches by CUDA events; the median"})
     return rows, serve
 
 
@@ -982,10 +1063,15 @@ def phase_serve():
     attn_mod.reset_counts()
     gen, stats = eng.generate(batch, max_new=SERVE_NEW)
     launches = flash_mod.launches
+    by_route = {"launches_wgmma": flash_mod.launches_wgmma,
+                "launches_fma": flash_mod.launches_fma}
     plain_calls = attn_mod.attention_plain_calls
     assert gen.shape == (SERVE_B, SERVE_NEW)
     assert ((gen >= 0) & (gen < cfg.vocab)).all()
     assert launches == cfg.n_layers, launches           # 16: one prefill
+    # bf16 at head_dim 64: every launch on the tensor-core route
+    assert by_route == {"launches_wgmma": cfg.n_layers,
+                        "launches_fma": 0}, by_route
     assert plain_calls == 0, plain_calls
     peak = torch.cuda.max_memory_allocated()
 
@@ -1056,9 +1142,12 @@ def phase_serve():
     prof.update(wall_s=wall, wall_s_runs=walls,
                 wall_s_under_profiler=wall_prof,
                 device_idle_share=1.0 - prof["device_busy_s"] / wall)
+    # the scheduler kernels and the FMA route are not launched here
     for key in ("masked_first_fit_device_us_per_launch",
-                "segmented_rank_device_us_per_launch"):
+                "segmented_rank_device_us_per_launch",
+                "flash_kernel_device_us_per_launch"):
         prof.pop(key)
+    assert prof["flash_wgmma_kernel_device_us_per_launch"] is not None, prof
 
     tokens_generated = SERVE_B * SERVE_NEW
     out = {
@@ -1069,7 +1158,7 @@ def phase_serve():
         "tokens_per_s_per_sequence": stats.tokens_per_s,
         "tokens_per_s": tokens_generated / stats.decode_s,
         "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / stats.prefill_s,
-        "launches": {"flash_attention": launches},
+        "launches": {"flash_attention": launches, **by_route},
         "attention_plain_calls": plain_calls,
         "max_memory_allocated": peak,
         "check_a_prefill_kernel_vs_plain": {
@@ -1161,26 +1250,43 @@ def main() -> None:
             ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
             bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
             library_ms=rows[0]["library_ms"], shape=shape))
+    wgmma_rows = [r for r in flash_rows + [flash_serve]
+                  if r["route"] == "wgmma"]
+    fma_rows = [r for r in flash_rows if r["route"] == "fma"]
+    flash_common = dict(
+        replaces="src/repro/kernels/flash_attention.py:90",
+        plain_ms=flash_serve["plain_ms"], bound_ms=flash_serve["bound_ms"],
+        bound_by=flash_serve["bound_by"],
+        library_ms=flash_serve["library_ms"],
+        shape=f"B={SERVE_B} T=S={SERVE_PROMPT} H=32 Hkv=8 D=64 causal bf16")
+    kernels.append(dict(
+        name="flash_attention_wgmma", route="cuda",
+        source=fl_src + "flash_attention_wgmma.cu",
+        launches=serve["launches"]["launches_wgmma"],
+        max_abs_err=max(r["max_abs_err"] for r in wgmma_rows),
+        ms=flash_serve["ms"], **flash_common,
+        tflops=flash_serve["tflops"],
+        share_of_bound=flash_serve["share_of_bound"],
+        main_path_device_us_per_launch=serve[
+            "profile_prefill_plus_4_decode"][
+            "flash_wgmma_kernel_device_us_per_launch"],
+        dtypes="bf16"))
+    # the FMA kernel: the f32 route, off the bf16 serve path; its time and
+    # error here are on the serve shape's bf16 inputs
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source=fl_src + "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:90",
-        launches=serve["launches"]["flash_attention"],
-        max_abs_err=max(r["max_abs_err"] for r in flash_rows
-                        if r["dtype"] == "float32"),
-        ms=flash_serve["ms"], plain_ms=flash_serve["plain_ms"],
-        bound_ms=flash_serve["bound_ms"], bound_by=flash_serve["bound_by"],
-        library_ms=flash_serve["library_ms"],
-        main_path_device_us_per_launch=serve[
-            "profile_prefill_plus_4_decode"][
-            "flash_kernel_device_us_per_launch"],
-        shape=f"B={SERVE_B} T=S={SERVE_PROMPT} H=32 Hkv=8 D=64 causal bf16",
-        bf16_max_abs_err=max(r["max_abs_err"] for r in flash_rows
-                             + [flash_serve] if r["dtype"] == "bfloat16")))
-    # f32 rows (fedavg_reduce's and flash_attention's bf16 rows: 2e-2, above)
-    tolerance = {"fedavg_reduce": 1e-6, "flash_attention": 2e-6}
+        launches=serve["launches"]["launches_fma"],
+        max_abs_err=max(r["max_abs_err"] for r in fma_rows),
+        ms=flash_serve["fma_ms"], **flash_common,
+        tflops=flash_serve["fma_tflops"],
+        on_serve_path=False, dtypes="f32",
+        bf16_max_abs_err=flash_serve["fma_max_abs_err"]))
+    # f32 rows; bf16 rows (fedavg_reduce's, flash_attention_wgmma's): 2e-2
+    tolerance = {"fedavg_reduce": 1e-6, "flash_attention": 2e-6,
+                 "flash_attention_wgmma": 2e-2}
     for k in kernels:
-        assert k["launches"] > 0, k
+        assert k["launches"] > 0 or k.get("on_serve_path") is False, k
         assert k["max_abs_err"] <= tolerance.get(k["name"], 0), k
     emit("total_seconds", time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,7 +36,8 @@
 // Hkv 8, D 64, causal, bf16) the causal pairs need 4·B·H·D·T(T+1)/2 = 17.2
 // GFLOP, 17.4 µs at the 989 TFLOP/s of bf16 tensor cores, against 42 MB of
 // q, k, v and out, 12.5 µs at 3.35 TB/s.  On FMA units (67 TFLOP/s f32) this
-// kernel cannot beat 0.26 ms; tensor cores (wgmma) are later work.
+// kernel cannot beat 0.26 ms; bf16 calls go to the tensor-core kernel
+// (flash_attention_wgmma.cu), and this one is the f32 route.
 //
 // Indices into q, k, v and out are 64-bit.
 #include <cuda_bf16.h>

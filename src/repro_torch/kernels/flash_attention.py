@@ -8,21 +8,31 @@ with query positions ``q_offset + t`` and key positions ``s``: causal masks
 ``acc / max(l, 1e-30)`` in the input's dtype.
 
 Replaces the Pallas-TPU kernel ``repro/kernels/flash_attention.py::
-flash_attention`` with a CUDA C++ kernel for Hopper
-(``csrc/flash_attention.cu``): a CTA owns a ``(b, h, 64-query tile)`` and
-loops over 64-key tiles, skipping those masked for the whole tile; GQA by
-index, no expansion of K and V; ragged ``T`` and ``S`` bounds-checked;
-``head_dim`` in :data:`HEAD_DIMS`; f32 and bf16.  :func:`flash_attention_plain`
-beside it is the reference's ``chunked_attention`` (the same online softmax,
-over KV chunks) in plain torch ops: the CPU path, the model's route for the
-calls outside the kernel's function (gemma2's softcap, ``Dv != D``), and
-``chip_smoke.py``'s yardstick for the kernel on the card.
+flash_attention`` with two CUDA C++ kernels for Hopper, one a route, chosen
+by :func:`flash_route` from the dtype:
+
+- ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``), bf16: tensor cores.  A
+  CTA owns a ``(b, h, 64-query tile)``: one consumer warpgroup runs
+  ``wgmma`` (bf16 in, f32 accumulate) on 64-key K and V tiles that a
+  producer warp loads by TMA into an ``mbarrier`` ring; P is rounded to bf16
+  for the ``P·V`` product (``l`` sums it unrounded).
+- ``"fma"`` (``csrc/flash_attention.cu``), f32: FMA units, a CTA a
+  ``(b, h, 64-query tile)``, f32 tiles in shared memory; exact to ``2e-6``.
+
+Both take every head_dim of :data:`HEAD_DIMS`, skip the KV tiles masked for
+the whole query tile, read GQA by index (no expansion of K and V), take
+ragged ``T`` and ``S`` without a padding copy and 64-bit offsets.
+:func:`flash_attention_plain` beside them is the
+reference's ``chunked_attention`` (the same online softmax, over KV chunks)
+in plain torch ops: the CPU path, the model's route for the calls outside
+the kernels' function (gemma2's softcap, ``Dv != D``), and
+``chip_smoke.py``'s yardstick for both kernels on the card.
 
 **Contract**: every query row has at least one valid key.  On the serving
 path (``T == S``, ``q_offset == 0``) the diagonal always is; a call where some
 row would have none (a window that ends before the keys start, ``S == 0``,
 ``q_offset < 0``) is refused with ``ValueError`` on both devices, since the
-kernel (which skips fully masked tiles) and the reference's kernel (which
+kernels (which skip fully masked tiles) and the reference's kernel (which
 visits them) would give such a row different, meaningless values.
 
 Bound on an H100: operations, ``4·B·H·D`` a valid (query, key) pair — at the
@@ -30,7 +40,8 @@ serve shape (``B 4, T = S = 1024, H 32, Hkv 8, D 64``, causal, bf16) 17.2
 GFLOP, 17.4 µs at 989 TFLOP/s, against 42 MB (12.5 µs) of bytes.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU; for
-a CUDA tensor it launches the kernel or raises.
+a CUDA tensor it launches the routed kernel or raises: no route gives way to
+the other or to the plain version.
 """
 from __future__ import annotations
 
@@ -42,30 +53,59 @@ import torch
 from ..accel.kernels import build
 
 NEG_INF = -2.0 ** 30  # large-negative in f32; avoids nan from (-inf) - (-inf)
-HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's head_dim instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128)   # both kernels' head_dim instantiations
 
-launches = 0        # kernel launches made by this module's wrapper
+# kernel launches made by this module's wrapper, by route; ``launches`` is
+# their sum
+launches_wgmma = 0
+launches_fma = 0
+launches = 0
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_wgmma, launches_fma
+    launches = launches_wgmma = launches_fma = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load_library("flash_attention")
-    fn = lib.venn_flash_attention
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of this dtype and head_dim launches:
+    ``"wgmma"`` (tensor cores) for bf16, ``"fma"`` for f32.  Raises
+    ``ValueError`` for a dtype or head_dim neither kernel is built for."""
+    if dtype not in _BF16:
+        raise ValueError(f"flash_attention: dtype must be float32 or bfloat16 "
+                         f"on the card; got {dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {head_dim} is not one of "
+                         f"the kernels' {HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+_ENTRY = {  # route -> (library, C entry, its arguments after the pointers)
+    "fma": ("flash_attention", "venn_flash_attention",
+            [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_float,
+                                  ctypes.c_int, ctypes.c_void_p]),
+    "wgmma": ("flash_attention_wgmma", "venn_flash_attention_wgmma",
+              [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_float,
+                                    ctypes.c_void_p]),
+}
+
+
+def entry(route: str):
+    """The C entry point of a route's kernel (building every kernel source
+    at first use)."""
+    lib_name, fn_name, args = _ENTRY[route]
+    fn = getattr(build.load_library(lib_name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + args
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def ensure_built() -> None:
-    _lib()
+    for route in _ENTRY:
+        entry(route)
 
 
 def kv_repeat(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -183,12 +223,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=q_offset)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {D} is not one of the "
-                         f"kernel's {HEAD_DIMS}")
-    if q.dtype not in _BF16:
-        raise ValueError(f"flash_attention: dtype must be float32 or bfloat16 "
-                         f"on the card; got {q.dtype}")
+    route = flash_route(q.dtype, D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
@@ -198,12 +233,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    fn = _lib().venn_flash_attention
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, T, S, H, Hkv, D, int(causal), int(window), int(q_offset),
-                  1.0 / math.sqrt(D), _BF16[q.dtype], stream)
-    launches += 1
-    build.check_launch(code, "flash_attention")
+        launch(route, q, k, v, out, causal=causal, window=window,
+               q_offset=q_offset, stream=stream)
     return out
+
+
+def launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, *, causal: bool, window: int, q_offset: int,
+           stream: int) -> None:
+    """Launch ``route``'s kernel on checked tensors, count the launch under
+    its route, and raise ``KernelError`` if the launch was refused."""
+    global launches, launches_wgmma, launches_fma
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, T, S, H, Hkv, D, int(causal), int(window), int(q_offset),
+            1.0 / math.sqrt(D)]
+    if route == "fma":
+        code = entry(route)(*args, _BF16[q.dtype], stream)
+        launches_fma += 1
+    else:
+        code = entry(route)(*args, stream)
+        launches_wgmma += 1
+    launches = launches_wgmma + launches_fma
+    build.check_launch(code, f"flash_attention ({route})")

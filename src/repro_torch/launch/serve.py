@@ -61,6 +61,8 @@ def main(argv=None) -> int:
           f"{stats.decode_s*1e3:.1f} ms -> {stats.tokens_per_s:.1f} tok/s/batch")
     print(f"flash kernel launches {flash.launches}; plain attention calls "
           f"{attention.attention_plain_calls}")
+    print(f"flash launches by route: tensor cores {flash.launches_wgmma}, "
+          f"FMA {flash.launches_fma}")
     print("sample tokens:", gen[0][:12].tolist())
     return 0
 

@@ -52,9 +52,9 @@ def test_package_has_the_expected_modules():
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",
                                                    "segmented_rank.cu"}
     csrc = PKG / "kernels" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"fedavg_reduce.cu",
-                                                   "flash_attention.cu",
-                                                   "quantize.cu"}
+    assert {p.name for p in csrc.glob("*.cu")} == {
+        "fedavg_reduce.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
+        "quantize.cu"}
 
 
 def test_importing_every_module_pulls_in_neither_jax_nor_repro():
@@ -88,7 +88,7 @@ def test_kernel_sources_are_cuda_with_a_plain_c_interface():
     from repro_torch.accel.kernels import build
     cus = [cu for d in (PKG / "accel" / "kernels" / "csrc",
                         PKG / "kernels" / "csrc") for cu in d.glob("*.cu")]
-    assert len(cus) == 5
+    assert len(cus) == 6
     for cu in cus:
         text = cu.read_text()
         assert "__global__" in text and 'extern "C"' in text, cu.name
