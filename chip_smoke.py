@@ -4,29 +4,32 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, holds the device matcher
-against the sequential oracle, and drives the resource manager's main path —
+against its plain PyTorch version on the card, holds the device matcher — one
+launch of ``match_segment`` a call, the whole fill-position fixed point of a
+segment, on one CTA or (above ``GRID_ROWS`` rows) on a cooperative grid, both
+routes timed side by side at six sizes — against the plain program (choice,
+granted and round count, bit for bit) and the sequential oracle, and drives
+the resource manager's main path —
 the check-in drain of ``Simulator(engine="array")`` under VENN-SCHED — at a
 size its users would call real (``tenx_r500_j2000``: base rate 500, about 15
 million check-ins in a quarter of a simulated day, 2000 jobs contending for
 the scarce high-performance tier), asserting metrics identical to the
-per-device loop.  Then the server half of a federated round: the three
-federated-learning kernels (``fedavg_reduce``, ``quantize``,
-``dequantize``) against their plain versions at llama3.2-1b's largest leaf
-(``fl_kernel_checks``), and two rounds of three jobs under one Venn
-scheduler, job 0 llama3.2-1b at full width (1 235 814 400 parameters): each
-granted client's seeded delta compressed to int8 and back, aggregated and
-applied by FedAdam (``fl_round``).  Then serving: the two flash-attention
-kernels — the tensor-core one (``wgmma``, bf16) and
-the FMA one (f32), each row naming its route —
-against their plain version at the reference's test shapes, ragged lengths,
-a query offset and the serve shape, where the tensor-core kernel, the FMA
-kernel on the same inputs, the plain version and SDPA are timed in turns
-(``flash_kernel_checks``); and llama3.2-1b at full width serving four
-prompts of 1024 tokens for 32 new tokens through ``Engine.generate``, its
-prefill's attention in the tensor-core kernel, checked against a prefill on
-the plain version and against full re-forwards (``serve``).  It imports
-``repro_torch`` only.
+per-device loop. Then the server half of a federated round: the three
+federated-learning kernels (``fedavg_reduce``, ``quantize``, ``dequantize``)
+against their plain versions at llama3.2-1b's largest leaf
+(``fl_kernel_checks``), and two rounds of three jobs under one Venn scheduler,
+job 0 llama3.2-1b at full width (1 235 814 400 parameters): each granted
+client's seeded delta compressed to int8 and back, aggregated and applied by
+FedAdam (``fl_round``). Then serving: the two flash-attention kernels — the
+tensor-core one (``wgmma``, bf16) and the FMA one (f32), each row naming its
+route — against their plain version at the reference's test shapes, ragged
+lengths, a query offset and the serve shape, where the tensor-core kernel, the
+FMA kernel on the same inputs, the plain version and SDPA are timed in turns
+(``flash_kernel_checks``); and llama3.2-1b at full width serving four prompts
+of 1024 tokens for 32 new tokens through ``Engine.generate``, its prefill's
+attention in the tensor-core kernel, checked against a prefill on the plain
+version and against full re-forwards (``serve``). It imports ``repro_torch``
+only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
 ``main_path``, ``dense_path``, ``fl_kernel_checks``, ``fl_round_setup``,
@@ -38,13 +41,15 @@ without a CUDA device the script exits non-zero before printing a result.
 
 After each workload one more ``engine="array"`` run of it, at a tenth of its
 horizon, goes under ``torch.profiler`` and prints a ``*_profile`` line: the
-device's busy time and idle share over that drain, and the device time per
-launch of the two hand-written kernels.  (A tenth, because the profiler's own
-bookkeeping takes minutes per million recorded events; the share does not
-depend on the horizon, every segment costs the same.)
+device's busy time and idle share over that drain, its device operations a
+matcher call, and the device time per launch of the scheduler's kernels.
+(A tenth, because the profiler's own bookkeeping takes minutes per million
+recorded events; the share does not depend on the horizon, every segment
+costs the same.)
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -67,6 +72,8 @@ from repro_torch import tree as tree_util
 from repro_torch.accel import replan as replan_mod
 from repro_torch.accel.engine import match_chunk_seq, match_chunk_torch
 from repro_torch.accel.kernels import build, replan_order, schedule_match
+from repro_torch.accel.kernels import match_segment as segment_mod
+from repro_torch.accel.kernels.stage import stage_for
 from repro_torch.accel.state import MatchState
 from repro_torch.configs import get_config
 from repro_torch.core import SCHEDULERS, Job, JobRequest, VennScheduler
@@ -132,6 +139,7 @@ def time_ms(fn, reps: int = 50, batches: int = 5) -> float:
 
 def phase_env() -> str:
     schedule_match.ensure_built()          # builds every kernel source at once
+    segment_mod.ensure_built()
     replan_order.ensure_built()
     fedavg_mod.ensure_built()
     quant_mod.ensure_built()
@@ -235,11 +243,18 @@ def check_rank(n, nseg, seed, timed, f32_keys=False):
     torch.cuda.synchronize()
     rank_p = replan_order.segmented_rank_ref(*d)
     assert torch.equal(rank, rank_p), ("segmented_rank", n, nseg)
-    perm = replan_order.segmented_order(*d).cpu().numpy()
-    assert np.array_equal(perm, np.lexsort((ties, keys, seg))), \
+    # the order entry: sorted segment ids, or None when there is one segment
+    od = [None if nseg == 1 else d[0], d[1], d[2]]
+    perm = replan_order.segmented_order(*od)
+    torch.cuda.synchronize()
+    perm_p = replan_order.segmented_order_ref(*d)
+    assert torch.equal(perm, perm_p), ("segmented_order vs plain", n, nseg)
+    assert np.array_equal(perm.cpu().numpy(), np.lexsort((ties, keys, seg))), \
         ("segmented_order vs lexsort", n, nseg)
     err = int((rank.long() - rank_p.long()).abs().max()) if n else 0
-    row = {"n": n, "segments": nseg, "equal": True, "max_abs_err": err}
+    order_err = int((perm.long() - perm_p.long()).abs().max()) if n else 0
+    row = {"n": n, "segments": nseg, "equal": True, "max_abs_err": err,
+           "order_max_abs_err": order_err}
     if timed:
         counts = np.bincount(seg)
         same_pairs = int((counts.astype(np.int64) ** 2).sum())
@@ -247,15 +262,177 @@ def check_rank(n, nseg, seed, timed, f32_keys=False):
         nbytes = n * (4 + 8 + 4) + n * 4
         t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        # the order entry compares only inside a row's segment (the 3
+        # compares of a same-segment pair), after a binary search for the
+        # segment's bounds when segment ids are given
+        order_ops = 3 * same_pairs \
+            + (n * math.ceil(math.log2(n)) if nseg > 1 else 0)
+        t_order_ops = order_ops / PEAK_SCALAR_OPS_PER_S * 1e3
+        order_bytes = n * (8 + 4 + 4) + (4 * n if nseg > 1 else 0)
+        t_order_bytes = order_bytes / PEAK_BYTES_PER_S * 1e3
         row.update(
+            order_bound_ms=max(t_order_ops, t_order_bytes),
+            order_bound_ops=order_ops, order_bound_bytes=order_bytes,
+            order_bound_by="operations" if t_order_ops >= t_order_bytes
+            else "bytes",
             ms=time_ms(lambda: replan_order.segmented_rank(*d)),
             plain_ms=time_ms(lambda: replan_order.segmented_rank_ref(*d),
                              reps=10),
-            order_ms=time_ms(lambda: replan_order.segmented_order(*d)),
+            order_ms=time_ms(lambda: replan_order.segmented_order(*od)),
+            order_plain_ms=time_ms(
+                lambda: replan_order.segmented_order_ref(*d), reps=10),
             bound_ms=max(t_ops, t_bytes), bound_ops=ops, bound_bytes=nbytes,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             library_ms=None)
     return row
+
+
+def _dense_state(seed, atoms, K, R, cover=False, demand_hi=24):
+    """A mirror of ``atoms`` atoms, each with ``K`` candidate slots among
+    ``R`` requests (the first four slots of a row with a tier band half the
+    time), on the card.  ``cover``: the rows run through one permutation of
+    the requests in turn, so that all ``R`` are in the mirror when
+    ``atoms * K >= R``; else each row is a random ``K`` of them."""
+    rng = np.random.default_rng(seed)
+    reqs = [FakeReq(int(rng.integers(1, demand_hi))) for _ in range(R)]
+    slots = []
+    perm = rng.permutation(R) if cover else None
+    for a in range(atoms):
+        picks = perm[(a * K + np.arange(K)) % R] if cover \
+            else rng.permutation(R)[:K]
+        row = []
+        for j, r in enumerate(picks):
+            lo, hi = (sorted(rng.uniform(0, 3, 2)) if j < 4
+                      and rng.uniform() < 0.5 else (-math.inf, math.inf))
+            row.append((reqs[int(r)], float(lo), float(hi)))
+        slots.append(row)
+    state = MatchState.from_scheduler(FakeSched(slots), token=("d", seed),
+                                      kcap=K, device=DEV)
+    assert state.d_cand_req.shape == (atoms, K), state.d_cand_req.shape
+    return state, rng
+
+
+def _segment_plain(state, ids_d, sp_d, start, live, n):
+    """The plain program on the card (torch only, no kernel of the
+    package): choice, granted, rounds (0 rounds when the mirror holds no
+    request, as the engine's entry returns)."""
+    R = len(state.remaining)
+    if R == 0:
+        return np.full(n, -1, dtype=np.int32), np.zeros(n, dtype=bool), 0
+    live_d = None if live is None else torch.from_numpy(
+        live.astype(np.int32)).to(DEV)
+    rem_d = torch.from_numpy(state.remaining.astype(np.int32)).to(DEV)
+    out = segment_mod.match_segment_ref(
+        state.d_cand_req, state.d_cand_lo, state.d_cand_hi, ids_d, sp_d,
+        start, live_d, n, rem_d).cpu().numpy()
+    assert out[2 * n + 1] == 1, "plain program did not settle"
+    return out[:n], out[n:2 * n] != 0, int(out[2 * n])
+
+
+def _segment_bound(state, ids, live, n):
+    """Bytes this call must move: the rows' ids and speeds, the candidate
+    rows of the distinct atoms they name, rem, the live indices, the
+    outputs; operations: the two f64 band compares of every (row, column)."""
+    K = state.d_cand_req.shape[1]
+    R = len(state.remaining)
+    atoms = len(np.unique(ids))
+    nbytes = n * (4 + 8) + atoms * K * (4 + 8 + 8) + 4 * R \
+        + (4 * n if live is not None else 0) + 4 * (2 * n + 2)
+    ops = 2 * n * K
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_SCALAR_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_bytes=nbytes,
+                bound_ops=ops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_segment(state, chunk_ids, chunk_sp, start, n, live, label,
+                  timed=False, seq=True):
+    """The one-launch matcher on rows of a bound chunk vs the plain program
+    on the card (choice, granted, rounds) and vs the sequential oracle."""
+    ids_d = torch.from_numpy(chunk_ids.astype(np.int32)).to(DEV)
+    sp_d = torch.from_numpy(chunk_sp).to(DEV)
+    args = (state.d_cand_req, state.d_cand_lo, state.d_cand_hi, ids_d, sp_d,
+            state.remaining)
+    kw = dict(n=n, start=start, live=live)
+    got = segment_mod.match_segment(*args, **kw)
+    assert got.settled, (label, "did not settle")
+    choice_p, granted_p, rounds_p = _segment_plain(state, ids_d, sp_d, start,
+                                                   live, n)
+    assert np.array_equal(got.choice, choice_p), (label, "choice")
+    assert np.array_equal(got.granted, granted_p), (label, "granted")
+    assert got.rounds == rounds_p, (label, "rounds", got.rounds, rounds_p)
+    rows = start + (live if live is not None else np.arange(n))
+    aids, speeds = chunk_ids[rows], chunk_sp[rows]
+    t_seq = None
+    if seq:
+        t0 = time.perf_counter()
+        want = match_chunk_seq(aids, speeds, state)
+        t_seq = time.perf_counter() - t0
+        assert np.array_equal(got.choice, want.choice), (label, "oracle")
+        assert np.array_equal(got.granted, want.granted), (label, "oracle")
+    lay = segment_mod.plan_layout(n, state.d_cand_req.shape[1],
+                                  len(state.remaining))
+    row = {"case": label, "n": n, "K": int(state.d_cand_req.shape[1]),
+           "R": len(state.remaining), "live_rows": live is not None,
+           "route": "grid" if lay.grid else "cta",
+           "rounds": got.rounds, "granted": int(got.granted.sum()),
+           "state_in_shared": [lay.req_in_smem, lay.row_in_smem],
+           "equal": True, "max_abs_err": 0, "sequential_oracle_s": t_seq}
+    if timed:
+        row.update(
+            ms=time_ms(lambda: segment_mod.match_segment(*args, **kw)),
+            plain_ms=time_ms(lambda: _segment_plain(
+                state, ids_d, sp_d, start, live, n), reps=10, batches=3),
+            library_ms=None, **_segment_bound(state, aids, live, n))
+    return row
+
+
+# the main path's mean segment first: it is the kernels line's shape
+SEG_TIMED = ((2, "tenx_r500_j2000's mean segment: n=2 of the dense mirror"),
+             (78, "heavy_r50_j200's mean segment: n=78 of the dense mirror"),
+             (1024, "n=1024 of the dense mirror: one CTA, one full tile"),
+             (16384, "the dense segment: n=16384 K=32 (the grid route)"))
+
+
+@contextlib.contextmanager
+def _grid_rows(rows):
+    """Send every segment of more than ``rows`` rows to the matcher's grid
+    route (the route comparison below only)."""
+    old = segment_mod.GRID_ROWS
+    segment_mod.GRID_ROWS = rows
+    try:
+        yield
+    finally:
+        segment_mod.GRID_ROWS = old
+
+
+def route_comparison(state, chunk_ids, chunk_sp):
+    """Both routes of the matcher at each size of ROUTE_SIZES on the dense
+    mirror, each held against the plain program (choice, granted, rounds)
+    and timed as the kernels line's rows are; what GRID_ROWS rests on."""
+    ids_d = torch.from_numpy(chunk_ids.astype(np.int32)).to(DEV)
+    sp_d = torch.from_numpy(chunk_sp).to(DEV)
+    args = (state.d_cand_req, state.d_cand_lo, state.d_cand_hi, ids_d, sp_d,
+            state.remaining)
+    rows = []
+    for n in ROUTE_SIZES:
+        row = {"n": n}
+        for route, limit in (("cta", 1 << 30), ("grid", 0)):
+            with _grid_rows(limit):
+                chk = check_segment(state, chunk_ids, chunk_sp, 0, n, None,
+                                    f"{route} n={n}", seq=False)
+                assert chk["route"] == route, chk
+                row[route + "_ms"] = time_ms(
+                    lambda: segment_mod.match_segment(*args, n=n),
+                    reps=10, batches=3)
+            row["rounds"] = chk["rounds"]
+        row["route_taken"] = "grid" if n > segment_mod.GRID_ROWS else "cta"
+        rows.append(row)
+    return rows
+
+
+ROUTE_SIZES = (1024, 1536, 2048, 4096, 8192, 16384)
 
 
 def phase_kernels():
@@ -270,11 +447,25 @@ def phase_kernels():
     for n in (1, 2, 7, 64, 200, 513, 1024):
         rk.append(check_rank(n, max(1, n // 9) + 1, 20 + n, timed=False,
                              f32_keys=True))
+    # the one-launch matcher on phase_matcher's dense mirror (64 atoms, K =
+    # 32, a random 32 of 2048 requests each; a chunk of 16384 rows) and on
+    # the workloads' mean segment sizes
+    state, rng = _dense_state(12345, 64, 32, 2048)
+    chunk_ids = rng.integers(0, 64, size=16384)
+    chunk_sp = rng.uniform(0, 3, size=16384)
+    seg = []
+    for n, label in SEG_TIMED:
+        seg.append(check_segment(state, chunk_ids, chunk_sp, 0, n, None,
+                                 label, timed=True, seq=n < 16384))
+    routes = route_comparison(state, chunk_ids, chunk_sp)
     emit("kernel_checks", {"masked_first_fit": ff, "segmented_rank": rk,
+                           "match_segment": seg,
+                           "match_segment_routes": routes,
+                           "grid_rows": segment_mod.GRID_ROWS,
                            "tolerance": "exact (torch.equal); integer outputs",
                            "timing": "median of 5 batches of 50 launches, "
                                      "CUDA events, inputs warm in L2"})
-    return ff, rk
+    return ff, rk, seg
 
 
 # --------------------------------------------------------------------------- #
@@ -318,7 +509,12 @@ def _random_state(rng, kcap=8):
 
 
 def phase_matcher():
-    checked = rounds = 0
+    """The engine's matcher entry (one launch of match_segment a call) vs
+    the plain program on the card (choice, granted and rounds, bit for bit)
+    and the sequential oracle, on 200 seeded small states — every fourth
+    through a padded chunk with a live-row list — and on three wide cases."""
+    segment_mod.reset_launches()
+    checked = rounds = calls = 0
     for seed in range(200):
         rng = np.random.default_rng(seed)
         state = _random_state(rng)
@@ -329,25 +525,38 @@ def phase_matcher():
         aids = rng.choice(cov, size=n)
         speeds = rng.uniform(0, 3, size=n)
         want = match_chunk_seq(aids, speeds, state)
-        got = match_chunk_torch(aids, speeds, state, DEV)
+        if seed % 4:
+            got = match_chunk_torch(aids, speeds, state, DEV)
+            chunk_ids, chunk_sp, start, live = aids, speeds, 0, None
+        else:
+            # the rows inside a bound chunk, between rows that are not live
+            start, m = 3, 2 * n + 5
+            live = np.sort(rng.choice(m - start, size=n, replace=False))
+            chunk_ids = rng.choice(cov, size=m)
+            chunk_sp = rng.uniform(0, 3, size=m)
+            chunk_ids[start + live], chunk_sp[start + live] = aids, speeds
+            got = match_chunk_torch(
+                aids, speeds, state, DEV,
+                on_device=(torch.from_numpy(chunk_ids.astype(np.int32)).to(DEV),
+                           torch.from_numpy(chunk_sp).to(DEV)),
+                start=start, live=live)
+        calls += len(state.remaining) > 0       # no request: no launch
         assert got.choice.dtype == np.int64 and got.granted.dtype == np.bool_
         assert np.array_equal(got.choice, want.choice), ("choice", seed)
         assert np.array_equal(got.granted, want.granted), ("granted", seed)
+        choice_p, granted_p, rounds_p = _segment_plain(
+            state, torch.from_numpy(chunk_ids.astype(np.int32)).to(DEV),
+            torch.from_numpy(chunk_sp).to(DEV), start, live, n)
+        assert np.array_equal(got.choice, choice_p), ("plain choice", seed)
+        assert np.array_equal(got.granted, granted_p), ("plain granted", seed)
+        assert got.rounds == rounds_p, ("rounds", seed, got.rounds, rounds_p)
         checked += 1
         rounds += got.rounds
-    # one dense segment: 16384 rows, 64 atoms, K = 32, 2048 requests
-    rng = np.random.default_rng(12345)
-    reqs = [FakeReq(int(rng.integers(1, 24))) for _ in range(2048)]
-    slots = []
-    for _ in range(64):
-        row = []
-        for j, r in enumerate(rng.permutation(2048)[:32]):
-            lo, hi = (sorted(rng.uniform(0, 3, 2)) if j < 4
-                      and rng.uniform() < 0.5 else (-math.inf, math.inf))
-            row.append((reqs[int(r)], float(lo), float(hi)))
-        slots.append(row)
-    state = MatchState.from_scheduler(FakeSched(slots), token=("d",),
-                                      kcap=32, device=DEV)
+    assert segment_mod.launches == calls, (segment_mod.launches, calls)
+    wide = []
+    # the dense segment: 16384 rows, 64 atoms, K = 32, 2048 requests,
+    # through the engine's entry (rows uploaded) and the wrapper
+    state, rng = _dense_state(12345, 64, 32, 2048)
     aids = rng.integers(0, 64, size=16384)
     speeds = rng.uniform(0, 3, size=16384)
     t0 = time.perf_counter()
@@ -355,19 +564,74 @@ def phase_matcher():
     t_seq = time.perf_counter() - t0
     match_chunk_torch(aids, speeds, state, DEV)             # warm-up
     torch.cuda.synchronize()
+    before = segment_mod.launches
     t0 = time.perf_counter()
     got = match_chunk_torch(aids, speeds, state, DEV)
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
+    assert segment_mod.launches == before + 1
+    # the route that serves the workloads' segments of this size
+    assert segment_mod.launches_grid == 2, segment_mod.launches_grid
     assert np.array_equal(got.choice, want.choice), "dense choice"
     assert np.array_equal(got.granted, want.granted), "dense granted"
+    # the stage holds no stream: a call runs on the stream current at call
+    # time, read through torch's raw getter (timed here against the public
+    # one it replaces)
+    stage = stage_for(DEV)
+    assert stage.stream_handle() == torch.cuda.current_stream(DEV).cuda_stream
+    side = torch.cuda.Stream(DEV)
+    with torch.cuda.stream(side):
+        assert stage.stream_handle() == side.cuda_stream
+        got_side = match_chunk_torch(aids, speeds, state, DEV)
+    assert np.array_equal(got_side.choice, want.choice), "side stream"
+    assert np.array_equal(got_side.granted, want.granted), "side stream"
+    stream_us = {}
+    for name, fn in (("raw_getter", stage.stream_handle),
+                     ("current_stream", lambda: torch.cuda.current_stream(
+                         DEV).cuda_stream)):
+        for _ in range(1000):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(20000):
+            fn()
+        stream_us[name] = (time.perf_counter() - t0) / 20000 * 1e6
+    row = check_segment(state, aids, speeds, 0, 16384, None, "dense",
+                        seq=False)
+    assert row["rounds"] == got.rounds
+    row.update(device_match_s=t_dev, sequential_oracle_s=t_seq)
+    wide.append(row)
+    # K = 130 (five mask words a row) and R = 4096 on the grid route; R =
+    # 16384 on one CTA (the request state spills to scratch); R = 2200 on
+    # one CTA with 47 488 bytes of dynamic shared memory (with the static
+    # 4 KB over the 48 KB that needs no opt-in)
+    for atoms, K, R, n, live_every in ((48, 130, 4096, 16384, 3),
+                                       (512, 32, 16384, 1536, 0),
+                                       (80, 32, 2200, 1024, 2)):
+        # demands of 1-2: the rows outnumber the capacity, grants run out
+        state, rng = _dense_state(7 + K + R, atoms, K, R, cover=True,
+                                  demand_hi=3)
+        assert len(state.remaining) == R, len(state.remaining)
+        m = n + 100
+        chunk_ids = rng.integers(0, atoms, size=m)
+        chunk_sp = rng.uniform(0, 3, size=m)
+        live = np.arange(0, n * live_every, live_every)[:n] \
+            if live_every else None
+        if live is not None:
+            m = int(live[-1]) + 101
+            chunk_ids = rng.integers(0, atoms, size=m)
+            chunk_sp = rng.uniform(0, 3, size=m)
+        wide.append(check_segment(state, chunk_ids, chunk_sp, 100, n, live,
+                                  f"K={K} R={R} n={n}"))
+    # both routes, and the one-CTA route with state in global scratch
+    assert segment_mod.launches_grid >= 4 and segment_mod.launches_scratch, \
+        (segment_mod.launches_grid, segment_mod.launches_scratch)
     emit("matcher", {
         "random_states_checked": checked, "random_states_rounds": rounds,
-        "dense": {"rows": 16384, "atoms": 64, "K": int(state.cand_req.shape[1]),
-                  "requests": 2048, "granted": int(got.granted.sum()),
-                  "rounds": got.rounds, "device_match_s": t_dev,
-                  "sequential_oracle_s": t_seq},
-        "equal_to_sequential_oracle": True})
+        "launches": segment_mod.launches,
+        "launches_grid": segment_mod.launches_grid,
+        "launches_scratch": segment_mod.launches_scratch,
+        "stream_handle_host_us": stream_us,
+        "wide": wide, "equal_to_plain_program_and_sequential_oracle": True})
 
 
 # --------------------------------------------------------------------------- #
@@ -401,9 +665,14 @@ def _profiled(run):
             "top_device_rows": [{"name": e.key[:80], "count": e.count,
                                  "device_s": e.self_device_time_total / 1e6}
                                 for e in top[:12]]}
-    for name in ("masked_first_fit", "segmented_rank", "flash_kernel",
-                 "flash_wgmma_kernel"):
-        mine = [e for e in rows if name in e.key]
+    prof["device_ops"] = sum(e.count for e in rows)
+    for name, key in (("masked_first_fit", "masked_first_fit"),
+                      ("match_segment", "match_segment_kernel"),
+                      ("segmented_rank", "segmented_rank_kernel<false>"),
+                      ("segmented_order", "segmented_rank_kernel<true>"),
+                      ("flash_kernel", "flash_kernel"),
+                      ("flash_wgmma_kernel", "flash_wgmma_kernel")):
+        mine = [e for e in rows if key in e.key]
         prof[name + "_device_us_per_launch"] = \
             sum(e.self_device_time_total for e in mine) \
             / sum(e.count for e in mine) if mine else None
@@ -412,8 +681,10 @@ def _profiled(run):
 
 def _run(make_jobs, pop, max_time, engine, seed=1, profile=False):
     schedule_match.reset_launches()
+    segment_mod.reset_launches()
     replan_order.reset_launches()
     replan_mod.order_fallbacks = 0
+    replan_mod.kernel_resorts = 0
     sched = SCHEDULERS["venn"](seed=seed)
     sim = Simulator(make_jobs(), sched, pop, SimConfig(max_time=max_time),
                     engine=engine)
@@ -425,8 +696,12 @@ def _run(make_jobs, pop, max_time, engine, seed=1, profile=False):
         metrics = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"masked_first_fit": schedule_match.launches,
-              "segmented_rank": replan_order.launches}
+    counts = {"match_segment": segment_mod.launches,
+              "match_segment_grid": segment_mod.launches_grid,
+              "match_segment_scratch": segment_mod.launches_scratch,
+              "masked_first_fit": schedule_match.launches,
+              "segmented_order": replan_order.launches_order,
+              "segmented_rank": replan_order.launches_rank}
     checkins = sim.checkins_seen + sim.checkins_skipped
     out = {"wall_s": wall, "drain_seconds": sim.drain_seconds,
            "stream_seconds": sim.stream_seconds,
@@ -438,13 +713,22 @@ def _run(make_jobs, pop, max_time, engine, seed=1, profile=False):
            "order_backend": sched._replan.order_backend
            if sched._replan is not None else None,
            "order_fallbacks": replan_mod.order_fallbacks,
+           "kernel_resorts": replan_mod.kernel_resorts,
            "launches": counts}
     eng = sim.engine
     if eng is not None:
         out.update(segments=eng.segments, matcher_calls=eng.matcher_calls,
                    matcher_rows=eng.matcher_rows,
                    fixedpoint_rounds=eng.fixedpoint_rounds,
-                   matcher_s=eng.matcher_s, rebuild_s=eng.rebuild_s,
+                   matcher_s=eng.matcher_s,
+                   matcher_host_us_per_call=eng.matcher_s
+                   / max(eng.matcher_calls, 1) * 1e6,
+                   matcher_max_rows=eng.matcher_max_rows,
+                   matcher_grid_calls=eng.matcher_grid_calls,
+                   matcher_grid_s=eng.matcher_grid_s,
+                   matcher_grid_share_of_matcher_s=eng.matcher_grid_s
+                   / max(eng.matcher_s, 1e-12),
+                   rebuild_s=eng.rebuild_s,
                    patch_s=eng.patch_s,
                    rebuilds=eng.rebuilds, patches=eng.patches,
                    expansions=eng.expansions, degraded=dict(eng.degraded),
@@ -452,7 +736,9 @@ def _run(make_jobs, pop, max_time, engine, seed=1, profile=False):
     if profile:
         out.update(prof, wall_s_under_profiler=out.pop("wall_s"),
                    device_idle_share_of_drain=
-                   1.0 - prof["device_busy_s"] / sim.drain_seconds)
+                   1.0 - prof["device_busy_s"] / sim.drain_seconds,
+                   device_ops_per_matcher_call=prof["device_ops"]
+                   / max(out.get("matcher_calls", 0), 1))
     return metrics, out
 
 
@@ -472,8 +758,19 @@ def run_both(tag, make_jobs, pop, max_time, note):
     assert len(m_arr.rounds) > 0, f"{tag}: no round completed"
     assert all(math.isfinite(v) for v in m_arr.jcts.values()), tag
     assert arr["device"].startswith("cuda"), arr["device"]
-    assert arr["launches"]["masked_first_fit"] > 0, f"{tag}: first-fit idle"
-    assert arr["launches"]["segmented_rank"] > 0, f"{tag}: rank idle"
+    # one launch of the fused matcher a matcher call, whatever the layout
+    assert arr["launches"]["match_segment"] == arr["matcher_calls"] > 0, \
+        (tag, arr["launches"], arr["matcher_calls"])
+    # the grid route serves exactly the calls above GRID_ROWS rows
+    assert arr["launches"]["match_segment_grid"] \
+        == arr["matcher_grid_calls"], (tag, arr["launches"])
+    # one launch of the order kernel a resort; the contract entries of both
+    # kernels are off the path
+    for res in (arr, py):
+        assert res["launches"]["segmented_order"] == res["kernel_resorts"] \
+            > 0, (tag, res["launches"], res["kernel_resorts"])
+        assert res["launches"]["masked_first_fit"] == 0, res["launches"]
+        assert res["launches"]["segmented_rank"] == 0, res["launches"]
     assert arr["order_backend"] == "kernel"
     assert arr["degraded"]["exception"] == 0, arr["degraded"]
     assert arr["degraded"]["implausible"] == 0, arr["degraded"]
@@ -1143,10 +1440,9 @@ def phase_serve():
                 wall_s_under_profiler=wall_prof,
                 device_idle_share=1.0 - prof["device_busy_s"] / wall)
     # the scheduler kernels and the FMA route are not launched here
-    for key in ("masked_first_fit_device_us_per_launch",
-                "segmented_rank_device_us_per_launch",
-                "flash_kernel_device_us_per_launch"):
-        prof.pop(key)
+    for key in ("masked_first_fit", "match_segment", "segmented_rank",
+                "segmented_order", "flash_kernel"):
+        prof.pop(key + "_device_us_per_launch")
     assert prof["flash_wgmma_kernel_device_us_per_launch"] is not None, prof
 
     tokens_generated = SERVE_B * SERVE_NEW
@@ -1181,7 +1477,7 @@ def phase_serve():
 
 def main() -> None:
     smi = phase_env()
-    ff, rk = phase_kernels()
+    ff, rk, seg = phase_kernels()
     phase_matcher()
 
     main_arr, main_prof = run_both(
@@ -1190,7 +1486,7 @@ def main() -> None:
         0.25 * 24 * 3600.0,
         "tenx_r500_j2000: base_rate 500, 2000 jobs on the high-performance "
         "tier, seed 1, 0.25 simulated days")
-    run_both(
+    dense_arr, dense_prof = run_both(
         "dense_path",
         lambda: generate_jobs(JobTraceConfig(num_jobs=200, seed=1)),
         PopulationConfig(seed=1001, base_rate=50.0),
@@ -1204,30 +1500,65 @@ def main() -> None:
 
     print(smi, flush=True)
     src = "src/repro_torch/accel/kernels/csrc/"
+
+    def on_paths(name):
+        """Launches and device µs a launch on both scheduler workloads."""
+        return dict(
+            launches=main_arr["launches"][name],
+            dense_path_launches=dense_arr["launches"][name],
+            main_path_device_us_per_launch=main_prof[
+                name + "_device_us_per_launch"],
+            dense_path_device_us_per_launch=dense_prof[
+                name + "_device_us_per_launch"])
+
     kernels = [
+        # the matcher's kernel: the TPU kernel's round loop in one launch
+        dict(name="match_segment", route="cuda",
+             source=src + "match_segment.cu",
+             replaces="src/repro/accel/kernels/schedule_match.py:66",
+             max_abs_err=max(r["max_abs_err"] for r in seg),
+             ms=seg[0]["ms"], plain_ms=seg[0]["plain_ms"],
+             bound_ms=seg[0]["bound_ms"], bound_by=seg[0]["bound_by"],
+             library_ms=None, on_path=True, **on_paths("match_segment"),
+             launches_grid=main_arr["launches"]["match_segment_grid"],
+             dense_path_launches_grid=dense_arr["launches"][
+                 "match_segment_grid"],
+             shape=seg[0]["case"],
+             other_shapes=[{k: r[k] for k in ("case", "route", "ms",
+                                              "plain_ms", "bound_ms")}
+                           for r in seg[1:]]),
+        # the reference's contract form of the first-fit step, off the path
         dict(name="masked_first_fit", route="cuda",
              source=src + "masked_first_fit.cu",
              replaces="src/repro/accel/kernels/schedule_match.py:66",
-             launches=main_arr["launches"]["masked_first_fit"],
              max_abs_err=max(r["max_abs_err"] for r in ff),
              ms=ff[0]["ms"], plain_ms=ff[0]["plain_ms"],
              bound_ms=ff[0]["bound_ms"], bound_by=ff[0]["bound_by"],
-             library_ms=None,
-             main_path_device_us_per_launch=main_prof[
-                 "masked_first_fit_device_us_per_launch"],
+             library_ms=None, on_path=False, **on_paths("masked_first_fit"),
              shape="first_fit_choice n=16384 K=32 R=2048",
              other_shapes=[{k: r[k] for k in ("n", "K", "R", "ms", "plain_ms",
                                               "bound_ms")} for r in ff[1:3]]),
+        # the replan's resort: ranks and permutation in one launch
+        dict(name="segmented_order", route="cuda",
+             source=src + "segmented_rank.cu",
+             replaces="src/repro/accel/kernels/replan_order.py:68",
+             max_abs_err=max(r["order_max_abs_err"] for r in rk),
+             ms=rk[0]["order_ms"], plain_ms=rk[0]["order_plain_ms"],
+             bound_ms=rk[0]["order_bound_ms"],
+             bound_by=rk[0]["order_bound_by"], library_ms=None, on_path=True,
+             **on_paths("segmented_order"),
+             shape="n=2000, one segment (no segment ids), f64 keys",
+             other_shapes=[{k: rk[1][k] for k in (
+                 "n", "segments", "order_ms", "order_plain_ms",
+                 "order_bound_ms")}]),
+        # the reference's contract form of the rank, off the path
         dict(name="segmented_rank", route="cuda",
              source=src + "segmented_rank.cu",
              replaces="src/repro/accel/kernels/replan_order.py:68",
-             launches=main_arr["launches"]["segmented_rank"],
              max_abs_err=max(r["max_abs_err"] for r in rk),
              ms=rk[0]["ms"], plain_ms=rk[0]["plain_ms"],
              bound_ms=rk[0]["bound_ms"], bound_by=rk[0]["bound_by"],
-             library_ms=None,
-             main_path_device_us_per_launch=main_prof[
-                 "segmented_rank_device_us_per_launch"],
+             library_ms=None, on_path=False, **on_paths("segmented_rank"),
              shape="n=2000, one segment, f64 keys",
              other_shapes=[{k: rk[1][k] for k in ("n", "segments", "ms",
                                                   "plain_ms", "bound_ms")}]),
@@ -1280,13 +1611,15 @@ def main() -> None:
         max_abs_err=max(r["max_abs_err"] for r in fma_rows),
         ms=flash_serve["fma_ms"], **flash_common,
         tflops=flash_serve["fma_tflops"],
-        on_serve_path=False, dtypes="f32",
+        on_path=False, dtypes="f32",
         bf16_max_abs_err=flash_serve["fma_max_abs_err"]))
     # f32 rows; bf16 rows (fedavg_reduce's, flash_attention_wgmma's): 2e-2
     tolerance = {"fedavg_reduce": 1e-6, "flash_attention": 2e-6,
                  "flash_attention_wgmma": 2e-2}
     for k in kernels:
-        assert k["launches"] > 0 or k.get("on_serve_path") is False, k
+        # a kernel off its path (a contract form kept for parity with the
+        # reference, the f32 flash route) is exempt, and for that only
+        assert k["launches"] > 0 or k.get("on_path") is False, k
         assert k["max_abs_err"] <= tolerance.get(k["name"], 0), k
     emit("total_seconds", time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)

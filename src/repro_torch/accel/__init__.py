@@ -7,10 +7,12 @@ array programs over struct-of-arrays mirrors of the scheduler state:
   second time on the device) and ``SupplyRings`` (stacked supply windows);
 * :mod:`.engine`  — ``match_chunk`` / ``match_chunk_torch`` (fill-position
   fixed-point matcher) and ``ArrayMatchEngine`` (simulator-facing);
-* :mod:`.match`   — the fixed point as a torch program on device tensors;
+* :mod:`.match`   — the fixed point as a torch program (the plain version
+  of the matcher's kernel);
 * :mod:`.replan`  — VENN-SCHED on incrementally maintained arrays;
-* :mod:`.kernels` — the two CUDA kernels (masked first-fit, segmented rank)
-  with their plain PyTorch versions.
+* :mod:`.kernels` — the CUDA kernels (the one-launch matcher
+  ``match_segment``; masked first-fit, the reference's contract form of its
+  step; segmented rank / order) with their plain PyTorch versions.
 """
 from .engine import (ArrayMatchEngine, MatchResult, match_chunk,
                      match_chunk_seq, match_chunk_torch)

@@ -12,8 +12,7 @@ demand.  :func:`match_chunk` solves it without a per-device loop via a
 1. assume no request fills inside the segment (``fillpos[r] = n``);
 2. give every check-in its first candidate slot whose tier band accepts its
    speed and whose request is not yet filled *at the check-in's position*
-   (a masked first-fit over the ``(n, K)`` candidate matrix — the step the
-   CUDA kernel does);
+   (a masked first-fit over the ``(n, K)`` candidate matrix);
 3. recompute each request's fill position (the position of its
    ``remaining[r]``-th chooser, via one stable argsort + segment counts);
 4. repeat from 2 until the fill positions stop moving.
@@ -26,12 +25,12 @@ vectorized.  The result is bit-identical to the sequential scan; a
 sequential reference (:func:`match_chunk_seq`) backs the property tests and
 serves as a safety net on non-convergence.
 
-Backends: ``torch`` (default — the fixed point as a torch program on the
-engine's device, :mod:`repro_torch.accel.match`, with the inner masked
-first-fit as the hand-written CUDA kernel of
-:mod:`repro_torch.accel.kernels.schedule_match`; on ``device="cpu"`` the same
-program runs on CPU tensors with the kernel's plain version) and ``numpy``
-(the host fixed point below, kept for host-only runs and as a cross-check).
+Backends: ``torch`` (default — on a CUDA device the whole fixed point of a
+segment is one launch of the hand-written kernel of
+:mod:`repro_torch.accel.kernels.match_segment`, with one upload and one
+download around it; on ``device="cpu"`` its plain version runs: the torch
+program of :mod:`repro_torch.accel.match` on CPU tensors) and ``numpy`` (the
+host fixed point below, kept for host-only runs and as a cross-check).
 """
 from __future__ import annotations
 
@@ -47,9 +46,8 @@ from ..device import DeviceLike, resolve_device
 from ..obs import audit as _obsaudit
 from ..obs import metrics as _obsmetrics
 from ..obs import trace as _obstrace
-from .kernels import schedule_match as _first_fit
+from .kernels import match_segment as _match_segment
 from .kernels.build import KernelError
-from .match import match_fixed_point
 from .state import MatchState
 
 __all__ = ["ArrayMatchEngine", "DeviceMatchError", "MatchResult", "SEG_ROWS",
@@ -205,17 +203,18 @@ def match_chunk(atom_ids: np.ndarray, speeds: np.ndarray,
 def match_chunk_torch(atom_ids: np.ndarray, speeds: np.ndarray,
                       state: MatchState, device: DeviceLike = None,
                       on_device: Optional[Tuple[torch.Tensor,
-                                                torch.Tensor]] = None
+                                                torch.Tensor]] = None,
+                      start: int = 0, live: Optional[np.ndarray] = None
                       ) -> MatchResult:
     """Segment matching on the state's device mirror.
 
-    Gathers the segment's candidate rows and computes the eligibility mask
-    on the device in f64, runs the fixed point there
-    (:func:`repro_torch.accel.match.match_fixed_point`), and brings
-    ``choice`` (int64) and ``granted`` (bool) back in one device-to-host
-    copy.  ``on_device`` optionally holds the same ``(atom_ids, speeds)``
-    rows as tensors already on the device (the engine slices them out of the
-    uploaded chunk), which saves the two uploads."""
+    One call of :func:`repro_torch.accel.kernels.match_segment.match_segment`:
+    on a CUDA device one launch computes the segment's eligibility (f64) and
+    its whole fixed point, and ``choice`` and ``granted`` come back in one
+    device-to-host copy.  ``on_device`` optionally holds ``(ids, speeds)``
+    tensors already on the device (the engine's uploaded chunk) whose rows
+    ``start + live[i]`` (``start + i`` when ``live`` is None) are the same
+    rows as ``(atom_ids, speeds)``; without it the rows are uploaded."""
     n = len(atom_ids)
     rem = state.remaining
     R = len(rem)
@@ -231,34 +230,27 @@ def match_chunk_torch(atom_ids: np.ndarray, speeds: np.ndarray,
     if on_device is not None:
         ids_d, sp_d = on_device
     else:
-        ids_d = torch.from_numpy(np.ascontiguousarray(atom_ids)).to(dev)
+        ids_d = torch.from_numpy(atom_ids.astype(np.int32)).to(dev)
         sp_d = torch.from_numpy(
             np.ascontiguousarray(speeds, dtype=np.float64)).to(dev)
-    reqix = state.d_cand_req.index_select(0, ids_d)             # (n, K) i32
-    sp = sp_d[:, None]
-    elig = (reqix >= 0) & (state.d_cand_lo.index_select(0, ids_d) <= sp) \
-        & (sp < state.d_cand_hi.index_select(0, ids_d))
-    rem_ext = np.zeros(R + 1, dtype=np.int32)     # + the spare slot (rem 0)
-    rem_ext[:R] = rem
-    choice, granted, rounds = match_fixed_point(
-        reqix, elig, torch.from_numpy(rem_ext).to(dev))
-    if choice is None:
+        start, live = 0, None
+    res = _match_segment.match_segment(
+        state.d_cand_req, state.d_cand_lo, state.d_cand_hi, ids_d, sp_d, rem,
+        n=n, start=start, live=live)
+    if not res.settled:
         # The fixed point is proven to settle within R+2 rounds.  If that
-        # ever breaks on the card the kernel or the program around it is
-        # wrong, and the run stops; on the CPU the sequential scan serves
-        # the segment, as in match_chunk.
+        # ever breaks on the card the kernel is wrong, and the run stops; on
+        # the CPU the sequential scan serves the segment, as in match_chunk.
         if dev.type == "cuda":
             raise DeviceMatchError(
-                f"fixed point did not settle in {rounds} rounds "
+                f"fixed point did not settle in {res.rounds} rounds "
                 f"(n={n}, R={R}) on {dev}")
         return match_chunk_seq(atom_ids, speeds, state)   # pragma: no cover
-    packed = torch.stack((choice, granted.to(torch.int32))).cpu().numpy()
     reg = _obsmetrics.REGISTRY
     if reg.enabled:
         reg.histogram("accel.fixedpoint_iters", lo=1.0, hi=1e3,
-                      buckets_per_decade=20).record(rounds)
-    return MatchResult(packed[0].astype(np.int64), packed[1].astype(bool),
-                       rounds)
+                      buckets_per_decade=20).record(res.rounds)
+    return MatchResult(res.choice.astype(np.int64), res.granted, res.rounds)
 
 
 # --------------------------------------------------------------------------- #
@@ -290,14 +282,18 @@ class ArrayMatchEngine:
         if self.device is not None and self.device.type == "cuda":
             # build + load the kernel here, outside any guard: a missing
             # compiler or a broken source must fail the run, not degrade it
-            _first_fit.ensure_built()
+            _match_segment.ensure_built()
         # the current chunk's (atom_ids i32, speeds f64) on the device,
-        # uploaded once per (re)classification and sliced per segment
+        # uploaded once per (re)classification; the kernel reads a segment's
+        # rows out of it by offset and live-row list
         self._chunk_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self.fixedpoint_rounds = 0      # torch backend: fixed-point rounds
         self.matcher_calls = 0          # torch backend: segments that reached
         self.matcher_rows = 0           # the device matcher, their rows,
         self.matcher_s = 0.0            # and the wall time spent in them
+        self.matcher_max_rows = 0       # the largest segment matched
+        self.matcher_grid_calls = 0     # calls above GRID_ROWS rows (the
+        self.matcher_grid_s = 0.0       # kernel's grid route), their time
         self.kcap = kcap                # adaptive candidate cap, sticky upward
         self.state: Optional[MatchState] = None
         self.rebuilds = 0
@@ -340,8 +336,8 @@ class ArrayMatchEngine:
         # pickle boundary.  Snapshot without it; the next prepare() rebuilds
         # from restored scheduler state (exactness via the usual protocol).
         # Device tensors (the mirror inside the state, the uploaded chunk)
-        # go the same way; the kernel library is a per-process cache in
-        # kernels.build, never held here.
+        # go the same way; the kernel library and the pinned transfer
+        # buffers are per-process caches in kernels, never held here.
         d = dict(self.__dict__)
         d["state"] = None
         d["_chunk_dev"] = None
@@ -436,7 +432,7 @@ class ArrayMatchEngine:
 
     def bind_chunk(self, atom_ids: np.ndarray, speeds: np.ndarray) -> None:
         """Upload a (re)classified chunk's atom ids and speeds once; later
-        ``match(..., start=cursor)`` calls slice them on the device."""
+        ``match(..., start=cursor)`` calls read their rows on the device."""
         if self.device is None:
             return
         self._chunk_dev = (
@@ -477,23 +473,18 @@ class ArrayMatchEngine:
             return MatchResult(choice, granted)
         sub_ids = atom_ids[idx]
         sub_speeds = speeds[idx]
-        on_device = None
+        rows = None
         if start is not None and self._chunk_dev is not None \
                 and start + n <= self._chunk_dev[0].shape[0]:
-            d_ids, d_sp = self._chunk_dev
-            if len(idx) == n:           # every row live: plain slices
-                on_device = (d_ids[start:start + n], d_sp[start:start + n])
-            else:
-                d_idx = torch.from_numpy(idx + start).to(self.device)
-                on_device = (d_ids.index_select(0, d_idx),
-                             d_sp.index_select(0, d_idx))
+            # the kernel reads the live rows straight out of the bound chunk
+            rows = (start, None if len(idx) == n else idx)
         while True:
             if self.backend == "numpy" and len(idx) <= 24:
                 # tiny live subset: the per-row scan beats a dozen NumPy
                 # calls on 10-element arrays
                 res = match_chunk_seq(sub_ids, sub_speeds, st)
             else:
-                res = self._match_guarded(sub_ids, sub_speeds, st, on_device)
+                res = self._match_guarded(sub_ids, sub_speeds, st, rows)
             # a truncated atom's row that exhausted its capped prefix might
             # have a deeper live slot: widen the cap and re-match (exact;
             # needs ~cap fills inside one segment, so it is rare)
@@ -518,7 +509,7 @@ class ArrayMatchEngine:
     # ------------------------------------------------- graceful degradation
 
     def _match_guarded(self, sub_ids: np.ndarray, sub_speeds: np.ndarray,
-                       st: MatchState, on_device=None) -> MatchResult:
+                       st: MatchState, rows=None) -> MatchResult:
         """Vectorized match with divergence guards.  Non-finite speeds are
         an *input* problem: the segment is served by the sequential oracle
         (bit-identical semantics) with a counter, on every backend.  A
@@ -529,7 +520,8 @@ class ArrayMatchEngine:
         wrong result means a wrong kernel — neither may finish on the host
         with the same JCTs and nobody the wiser.
         :class:`~repro_torch.accel.kernels.build.KernelError` (build, load,
-        launch) leaves on every device."""
+        launch) leaves on every device.  ``rows`` is ``(start, live)``: the
+        rows' place in the bound chunk (None: upload them)."""
         on_card = self.device is not None and self.device.type == "cuda"
         if not bool(np.isfinite(sub_speeds).all()):
             # corrupted speed readings: the sequential scan's comparisons
@@ -540,12 +532,22 @@ class ArrayMatchEngine:
         try:
             if self.backend == "torch":
                 t0 = time.perf_counter()
-                res = match_chunk_torch(sub_ids, sub_speeds, st,
-                                        on_device=on_device)
-                self.matcher_s += time.perf_counter() - t0
+                if rows is None:
+                    res = match_chunk_torch(sub_ids, sub_speeds, st)
+                else:
+                    res = match_chunk_torch(
+                        sub_ids, sub_speeds, st, on_device=self._chunk_dev,
+                        start=rows[0], live=rows[1])
+                dt = time.perf_counter() - t0
+                m = len(sub_ids)
+                self.matcher_s += dt
                 self.fixedpoint_rounds += res.rounds
                 self.matcher_calls += 1
-                self.matcher_rows += len(sub_ids)
+                self.matcher_rows += m
+                self.matcher_max_rows = max(self.matcher_max_rows, m)
+                if m > _match_segment.GRID_ROWS:
+                    self.matcher_grid_calls += 1
+                    self.matcher_grid_s += dt
             else:
                 res = match_chunk(sub_ids, sub_speeds, st)
         except KernelError:

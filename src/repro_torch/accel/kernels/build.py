@@ -20,6 +20,7 @@ for one: :class:`KernelError` always propagates.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,6 +29,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+import torch
 
 CSRC_DIRS = (Path(__file__).resolve().parent / "csrc",
              Path(__file__).resolve().parents[2] / "kernels" / "csrc")
@@ -141,3 +144,11 @@ def check_launch(code: int, what: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` returned by a launcher."""
     if code != 0:
         raise KernelLaunchError(f"{what}: CUDA launch failed (error {code})")
+
+
+def device_context(dev: torch.device):
+    """``torch.cuda.device(dev)`` when ``dev`` is not the current device, a
+    no-op context when it is (entering one costs more than a small launch)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -1,18 +1,22 @@
-"""The fill-position fixed point as a torch program on device tensors.
+"""The fill-position fixed point as a torch program: the plain version of
+the matcher's kernel.
 
 The counterpart of the reference's jitted ``_match_jax`` (a
 ``lax.while_loop`` on padded shapes).  Torch runs eagerly, so there is no
 padding: the tensors have the segment's own ``(n, K)`` and ``(R,)`` shapes.
-``fill``, ``choice`` and the rank arrays stay on the device across rounds; a
-round costs one host sync (the convergence test), and the loop gives up after
-``R + 2`` rounds (the proven bound) and says so; the caller raises on a CUDA
-device and serves the sequential oracle on the CPU.
+A round costs one host sync (the convergence test), and the loop gives up
+after ``R + 2`` rounds (the proven bound) and says so.  On a CUDA device the
+engine runs the whole loop as one launch of
+:mod:`repro_torch.accel.kernels.match_segment` instead; this program is that
+kernel's plain version (``match_segment_ref``), which the CPU path runs and
+the card's checks hold the kernel against.
 
 One round:
 
 1. ``choice_of``  — masked first-fit over the candidate matrix, gathering
-   ``fill[reqix]`` inside the kernel
-   (:func:`repro_torch.accel.kernels.schedule_match.first_fit_choice`);
+   ``fill[reqix]`` (the first-fit kernel's plain version,
+   :func:`repro_torch.accel.kernels.schedule_match.first_fit_choice_ref`,
+   so that the program holds no kernel of this package);
 2. ``ranks_of``   — stable sort by chosen request (``torch.sort(stable=True)``
    equals the reference's ``lexsort((pos, ch_key))`` because ``pos`` is
    ``arange``); a row's group starts where its key first occurs in the sorted
@@ -26,8 +30,9 @@ One round:
    rows without a choice (sort key ``R``) fall out of every comparison without
    a separate validity mask.
 
-A round is about fifteen small launches; their latency, not bandwidth, is
-what a segment costs.
+On a card a round is about fifteen small launches and a sync; their
+latency, not bandwidth, is what a segment costs — the reason for the
+one-launch kernel.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .kernels.schedule_match import first_fit_choice
+from .kernels.schedule_match import first_fit_choice_ref
 
 
 def match_fixed_point(reqix: torch.Tensor, elig: torch.Tensor,
@@ -58,7 +63,7 @@ def match_fixed_point(reqix: torch.Tensor, elig: torch.Tensor,
     fill0 = torch.where(rem_ext > 0, n, -1).to(torch.int32)
     cur = fill0
     for it in range(1, R + 3):
-        _, choice = first_fit_choice(elig, reqix, cur[:R], pos)
+        _, choice = first_fit_choice_ref(elig, reqix, cur[:R], pos)
         # stable (request, position) sort -> per-request chooser ranks; rows
         # without a choice sort last under key R, whose rem is 0, so they are
         # never a last chooser and never granted

@@ -53,9 +53,10 @@ validation failure under ``REPRO_REPLAN_CHECK=1`` (tests run the paranoid
 mode: per replan, membership and keys are re-derived from the group objects
 and compared exactly).
 
-The device resort lives in ``kernels/replan_order.py``: a segmented-rank CUDA
-kernel (masked compare-count over job×job tiles, f64 keys) with its plain
-PyTorch version beside it.  It is the resort backend (``order_backend=
+The device resort lives in ``kernels/replan_order.py``: the segmented-order
+CUDA kernel (a warp a job counting the jobs of its group ahead of it, f64
+keys, the permutation written in the same launch) with its plain PyTorch
+version beside it.  It is the resort backend (``order_backend=
 "kernel"``) whenever the engine's device is a CUDA device; on
 ``device="cpu"`` the resort stays NumPy (f64 lexsort).  Either way the
 exactness bar is bit-identity with Python-float sorts, held by the strict-order
@@ -91,6 +92,9 @@ _I32_MAX = 2 ** 31 - 1
 # resorts that the strict-order guard sent back to np.lexsort (per process;
 # stays 0 on finite keys, because the kernel compares f64)
 order_fallbacks = 0
+# resorts handed to the segmented_order wrapper (per process): one kernel
+# launch each on a CUDA device
+kernel_resorts = 0
 
 
 class KernelOrderError(RuntimeError):
@@ -114,20 +118,23 @@ def _kernel_order(ids: np.ndarray, keys: np.ndarray,
     the kernel is wrong: on a CUDA device that raises
     :class:`KernelOrderError` instead of finishing on the host; on the CPU
     (the kernel's plain version) it falls back and is counted.  Job ids
-    outside int32 take ``np.lexsort`` directly."""
+    outside int32 take ``np.lexsort`` directly.
+
+    ``keys`` and ``ids`` go up in one non-blocking copy from the device's
+    pinned stage and the permutation comes back into another, in one call
+    of the kernel's C entry; the group is one segment, so no segment ids
+    are sent."""
     n = len(ids)
     if n < 2:
         return np.arange(n, dtype=np.int64)
     if ids.min() < _I32_MIN or ids.max() > _I32_MAX:
         return np.lexsort((ids, keys))
-    from .kernels.replan_order import segmented_order
+    global kernel_resorts
+    from .kernels import replan_order
     dev = torch.device(device)
-    perm = segmented_order(
-        torch.zeros(n, dtype=torch.int32, device=dev),        # one segment
-        torch.from_numpy(np.ascontiguousarray(keys, dtype=np.float64)).to(dev),
-        torch.from_numpy(ids.astype(np.int32)).to(dev),
-    ).cpu().numpy().astype(np.int64)
-    return _guard_order(perm, ids, keys, dev)
+    kernel_resorts += 1
+    perm = replan_order.segmented_order_staged(keys, ids, dev)
+    return _guard_order(perm.astype(np.int64), ids, keys, dev)
 
 
 def _guard_order(perm: np.ndarray, ids: np.ndarray, keys: np.ndarray,

@@ -28,6 +28,8 @@ def test_package_has_the_expected_modules():
                  "repro_torch.accel.replan",
                  "repro_torch.accel.kernels.build",
                  "repro_torch.accel.kernels.schedule_match",
+                 "repro_torch.accel.kernels.match_segment",
+                 "repro_torch.accel.kernels.stage",
                  "repro_torch.accel.kernels.replan_order",
                  "repro_torch.core.manager", "repro_torch.sim.simulator",
                  "repro_torch.obs.audit", "repro_torch.fed.overcommit",
@@ -50,6 +52,7 @@ def test_package_has_the_expected_modules():
         assert name in MODULES, name
     csrc = PKG / "accel" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",
+                                                   "match_segment.cu",
                                                    "segmented_rank.cu"}
     csrc = PKG / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
@@ -88,7 +91,7 @@ def test_kernel_sources_are_cuda_with_a_plain_c_interface():
     from repro_torch.accel.kernels import build
     cus = [cu for d in (PKG / "accel" / "kernels" / "csrc",
                         PKG / "kernels" / "csrc") for cu in d.glob("*.cu")]
-    assert len(cus) == 6
+    assert len(cus) == 7
     for cu in cus:
         text = cu.read_text()
         assert "__global__" in text and 'extern "C"' in text, cu.name

@@ -6,6 +6,8 @@ handling) against the reference's Pallas kernels in interpret mode, against
 the reference's jnp oracles, and against ``np.lexsort``.  All outputs are
 integers: every comparison is exact.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +20,9 @@ from repro.accel.kernels import (masked_first_fit as jax_first_fit,
                                  segmented_rank_ref as jax_segmented_rank_ref)
 from repro_torch.accel.kernels import (first_fit_choice, masked_first_fit,
                                        masked_first_fit_ref, segmented_order,
-                                       segmented_rank, segmented_rank_ref)
-from repro_torch.accel.kernels import replan_order, schedule_match
+                                       segmented_order_ref, segmented_rank,
+                                       segmented_rank_ref)
+from repro_torch.accel.kernels import build, replan_order, schedule_match
 from torch_parity import CPU
 
 
@@ -173,3 +176,92 @@ def test_segmented_rank_rejects_wrong_dtypes_and_empty_is_free():
                            ).shape == (0,)
     assert replan_order.launches == 0
     assert seg.device == CPU
+
+
+# ------------------------------------------------------------ segmented order
+
+@pytest.mark.parametrize("n,nseg", [(1, 1), (2, 1), (40, 1), (333, 1),
+                                    (3, 2), (50, 7), (257, 30), (600, 4)])
+def test_segmented_order_one_launch_form_equals_lexsort_and_reference(n,
+                                                                      nseg):
+    """Sorted segment ids (or None for one segment), f32-exact keys with
+    ties: the order entry equals np.lexsort, the reference's Pallas
+    segmented_order in interpret mode, and the bincount route."""
+    rng = np.random.default_rng(31 * n + nseg)
+    seg = np.sort(rng.integers(0, nseg, n)).astype(np.int32)
+    keys = rng.choice([0.5, 1.25, 3.0, 7.75], size=n).astype(np.float32)
+    ties = rng.permutation(n).astype(np.int32)
+    want = np.lexsort((ties, keys, seg))
+    jax_want = np.asarray(jax_segmented_order(
+        jnp.asarray(seg), jnp.asarray(keys), jnp.asarray(ties),
+        interpret=True))
+    assert np.array_equal(jax_want, want)
+    k64 = _t(keys.astype(np.float64))
+    got = segmented_order(_t(seg), k64, _t(ties))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, segmented_order_ref(_t(seg), k64, _t(ties)))
+    if nseg == 1:
+        one = segmented_order(None, k64, _t(ties))
+        assert np.array_equal(one.numpy(), np.lexsort((ties, keys)))
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_segmented_order_nan_keys_still_give_valid_indices(segmented):
+    keys = np.array([2.0, np.nan, 1.0, 1.0, np.nan, 0.5, 3.0])
+    n = len(keys)
+    seg = _t(np.array([0, 0, 0, 1, 1, 1, 1], dtype=np.int32)) \
+        if segmented else None
+    perm = segmented_order(seg, _t(keys), _t(np.arange(n, dtype=np.int32)))
+    assert perm.shape == (n,) and perm.dtype == torch.int32
+    assert int(perm.min()) >= 0 and int(perm.max()) < n
+
+
+@pytest.mark.parametrize("seg", [[1, 0, 2], [0, 2, 1], [-1, 0, 0]])
+def test_segmented_order_refuses_unsorted_segments_on_the_cpu(seg):
+    with pytest.raises(ValueError, match="sorted"):
+        segmented_order(_t(np.array(seg, dtype=np.int32)),
+                        torch.zeros(3, dtype=torch.float64),
+                        torch.arange(3, dtype=torch.int32))
+
+
+def test_order_and_rank_launches_are_counted_apart(monkeypatch):
+    """With a stand-in library (no kernel runs on the CPU): each entry
+    passes its pointers, n and the stream, and counts under its own name;
+    the order form passes a null segment pointer for one segment."""
+    calls = {}
+
+    def entry(name):
+        def fn(*args):
+            calls.setdefault(name, []).append(args)
+            return 0
+        fn.argtypes = fn.restype = None
+        return fn
+
+    lib = types.SimpleNamespace(venn_segmented_rank=entry("rank"),
+                                venn_segmented_order=entry("order"))
+    monkeypatch.setattr(build, "load_library", lambda name: lib)
+    monkeypatch.setattr(replan_order, "_fns", {})
+    replan_order.reset_launches()
+    seg = torch.zeros(5, dtype=torch.int32)
+    keys = torch.zeros(5, dtype=torch.float64)
+    ties = torch.arange(5, dtype=torch.int32)
+    out = torch.zeros(5, dtype=torch.int32)
+    replan_order._launch("venn_segmented_order", None, keys, ties, out, 7)
+    replan_order._launch("venn_segmented_order", seg, keys, ties, out, 7)
+    replan_order._launch("venn_segmented_rank", seg, keys, ties, out, 7)
+    # the staged form: pinned in, device in, bytes, pinned out
+    replan_order._launch("venn_segmented_order", None, keys, ties, out, 7,
+                         (11, 12, 60, 13))
+    assert calls["order"][0] == (None, keys.data_ptr(), ties.data_ptr(),
+                                 out.data_ptr(), 5, None, None, 0, None, 7)
+    assert calls["order"][1][0] == seg.data_ptr()
+    assert calls["order"][2][5:] == (11, 12, 60, 13, 7)
+    assert calls["rank"][0] == (seg.data_ptr(), keys.data_ptr(),
+                                ties.data_ptr(), out.data_ptr(), 5, 7)
+    assert (replan_order.launches, replan_order.launches_order,
+            replan_order.launches_rank) == (4, 3, 1)
+    monkeypatch.setattr(replan_order, "_fns", {})
+    bad = types.SimpleNamespace(venn_segmented_order=lambda *a: 1)
+    monkeypatch.setattr(build, "load_library", lambda name: bad)
+    with pytest.raises(build.KernelLaunchError, match="segmented_order"):
+        replan_order._launch("venn_segmented_order", None, keys, ties, out, 0)

@@ -111,7 +111,7 @@ def test_fixed_point_gives_up_after_its_bound(monkeypatch):
             ch[0] = -1
         return ch, ch
 
-    monkeypatch.setattr(match_mod, "first_fit_choice", flapping)
+    monkeypatch.setattr(match_mod, "first_fit_choice_ref", flapping)
     reqix = torch.zeros((3, 1), dtype=torch.int32)
     choice, granted, rounds = match_fixed_point(
         reqix, reqix >= 0, torch.tensor([2, 0], dtype=torch.int32))
@@ -179,7 +179,7 @@ def test_engine_on_a_cuda_device_raises_where_the_cpu_degrades(monkeypatch,
     row = [(FakeReq(5), -math.inf, math.inf)]
     aids, speeds = np.zeros(30, dtype=np.int64), np.ones(30)
 
-    def faulty(ids, sp, st, on_device=None):
+    def faulty(ids, sp, st, **kw):
         if fault == "exception":
             raise RuntimeError("CUDA error: an illegal memory access")
         return MatchResult(np.zeros(len(ids), dtype=np.int64),

@@ -53,6 +53,40 @@ def test_kernel_order_equals_lexsort_and_reference(n):
     assert replan_mod.order_fallbacks == before     # f64 compares: no trip
 
 
+@pytest.mark.parametrize("n", [2, 33, 512, 1500])
+def test_kernel_order_goes_through_one_stage_and_one_order_call(monkeypatch,
+                                                                n):
+    """One resort: keys and ids staged together in the device's stage, one
+    ``segmented_order`` call with no segment ids (one group is one
+    segment), counted in ``kernel_resorts``; the stage is reused call after
+    call."""
+    from repro_torch.accel.kernels.stage import stage_for
+    seen = []
+    real = replan_order.segmented_order
+
+    def spy(seg_ids, keys, ties):
+        seen.append((seg_ids, keys.dtype, ties.dtype, keys.shape[0]))
+        return real(seg_ids, keys, ties)
+
+    monkeypatch.setattr(replan_order, "segmented_order", spy)
+    rng = np.random.default_rng(n)
+    stage = stage_for(CPU)
+    before = replan_mod.kernel_resorts
+    for rep in range(2):
+        keys = rng.choice([0.25, 1.0, 1.0 + 2.0 ** -40, 9.5], size=n)
+        ids = rng.permutation(n).astype(np.int64) + 7
+        got = _kernel_order(ids, keys, CPU)
+        assert np.array_equal(got, np.lexsort((ids, keys)))
+        ptrs = (stage.host_in_ptr, stage.host_out_ptr)
+        if rep:
+            assert ptrs == first           # same size: no new buffers
+        first = ptrs
+        assert np.array_equal(stage.host_in_np[:8 * n].view(np.float64), keys)
+    assert stage_for(CPU) is stage
+    assert seen == [(None, torch.float64, torch.int32, n)] * 2
+    assert replan_mod.kernel_resorts == before + 2
+
+
 def test_kernel_order_id_overflow_takes_lexsort(monkeypatch):
     def boom(*a, **k):
         raise AssertionError("the kernel wrapper must not be reached")
