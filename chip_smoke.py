@@ -14,7 +14,17 @@ the check-in drain of ``Simulator(engine="array")`` under VENN-SCHED — at a
 size its users would call real (``tenx_r500_j2000``: base rate 500, about 15
 million check-ins in a quarter of a simulated day, 2000 jobs contending for
 the scarce high-performance tier), asserting metrics identical to the
-per-device loop. Then the server half of a federated round: the three
+per-device loop. Then the scenario registry (``scenarios``): all eleven
+registered scenarios at their library size (one simulated week, 24 jobs,
+0.3-0.5 million check-ins each) through ``repro_torch.scenarios.run_one``
+under VENN on both drain engines, metrics identical between them, one
+``match_segment`` launch a matcher call and one ``segmented_order`` launch a
+resort, ``flaky_ingest``'s non-finite speeds the only degradation; a recorded
+``flash_crowd`` stream replayed to the same metrics; the audit stream of two
+scenarios byte-identical between the engines; ``blackout_storm`` crashed
+three times and restored from snapshots to the crash-free metrics; and
+``python -m repro_torch.scenarios run`` in a child process with no device
+flag. Then the server half of a federated round: the three
 federated-learning kernels (``fedavg_reduce``, ``quantize``, ``dequantize``)
 against their plain versions at llama3.2-1b's largest leaf
 (``fl_kernel_checks``), and two rounds of three jobs under one Venn scheduler,
@@ -32,17 +42,19 @@ version and against full re-forwards (``serve``). It imports ``repro_torch``
 only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
-``main_path``, ``dense_path``, ``fl_kernel_checks``, ``fl_round_setup``,
+``main_path``, ``dense_path``, one ``scenario`` per registered scenario,
+``scenarios``, ``fl_kernel_checks``, ``fl_round_setup``,
 one ``fl_round_job`` per job and round, ``fl_round``,
 ``flash_kernel_checks``, ``serve``), the card's name and power limit, the
 ``kernels`` summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises;
 without a CUDA device the script exits non-zero before printing a result.
 
-After each workload one more ``engine="array"`` run of it, at a tenth of its
-horizon, goes under ``torch.profiler`` and prints a ``*_profile`` line: the
-device's busy time and idle share over that drain, its device operations a
-matcher call, and the device time per launch of the scheduler's kernels.
+After each of the two drain workloads one more ``engine="array"`` run of it,
+at a tenth of its horizon, goes under ``torch.profiler`` and prints a
+``*_profile`` line: the device's busy time and idle share over that drain,
+its device operations a matcher call, and the device time per launch of the
+scheduler's kernels.
 (A tenth, because the profiler's own bookkeeping takes minutes per million
 recorded events; the share does not depend on the horizon, every segment
 costs the same.)
@@ -56,10 +68,11 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np
 import torch
@@ -68,6 +81,7 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device available\n")
     sys.exit(1)
 
+from repro_torch import scenarios as scen
 from repro_torch import tree as tree_util
 from repro_torch.accel import replan as replan_mod
 from repro_torch.accel.engine import match_chunk_seq, match_chunk_torch
@@ -78,6 +92,7 @@ from repro_torch.accel.state import MatchState
 from repro_torch.configs import get_config
 from repro_torch.core import SCHEDULERS, Job, JobRequest, VennScheduler
 from repro_torch.device import default_device
+from repro_torch.faults import FaultInjector, run_with_crashes
 from repro_torch.fed import aggregation as fed_aggregation
 from repro_torch.fed.aggregation import FedAdam, FedAvg, aggregate_deltas
 from repro_torch.fed.compression import (QuantizeConfig, compress,
@@ -783,6 +798,220 @@ def run_both(tag, make_jobs, pop, max_time, note):
                             "horizon_share": PROFILE_HORIZON_SHARE,
                             "array": prof})
     return arr, prof
+
+
+# --------------------------------------------------------------------------- #
+# 5b. the scenario registry, fault injection, record/replay, audit, crashes
+# --------------------------------------------------------------------------- #
+
+def _scenario_run(spec, engine, **kw):
+    """One registered scenario under VENN, seed 0, on the card, through the
+    runner a user calls; the run's metrics and its drain and kernel counts."""
+    segment_mod.reset_launches()
+    replan_order.reset_launches()
+    replan_mod.kernel_resorts = 0
+    replan_mod.order_fallbacks = 0
+    r = scen.run_one(spec, "venn", 0, engine=engine, device=DEV, **kw)
+    torch.cuda.synchronize()
+    sim = r.sim
+    out = {"wall_s": r.wall,
+           "checkins": sim.checkins_seen + sim.checkins_skipped,
+           "checkin_loop_s": sim.drain_seconds - sim.stream_seconds,
+           "stream_seconds": sim.stream_seconds,
+           "sched_invocations": sim.sched.sched_invocations,
+           "kernel_resorts": replan_mod.kernel_resorts,
+           "order_fallbacks": replan_mod.order_fallbacks,
+           "launches": {"match_segment": segment_mod.launches,
+                        "match_segment_grid": segment_mod.launches_grid,
+                        "segmented_order": replan_order.launches_order,
+                        "segmented_rank": replan_order.launches_rank}}
+    eng = sim.engine
+    if eng is not None:
+        out.update(device=str(eng.device), segments=eng.segments,
+                   matcher_calls=eng.matcher_calls,
+                   matcher_rows=eng.matcher_rows,
+                   matcher_max_rows=eng.matcher_max_rows,
+                   matcher_s=eng.matcher_s,
+                   matcher_host_us_per_call=eng.matcher_s
+                   / max(eng.matcher_calls, 1) * 1e6,
+                   degraded=dict(eng.degraded),
+                   degraded_segments=eng.degraded_segments)
+    return r.metrics, out
+
+
+def _same_run(tag, a, b, skip=()):
+    """Metrics of two runs bit for bit: ``summary()``, JCTs, rounds and
+    ``resilience()`` but for the counters in ``skip`` (``degraded_segments``,
+    which only the array engine counts, between engines; the recoveries
+    between a crashed run and a crash-free one)."""
+    assert a.jcts == b.jcts, f"{tag}: jcts differ"
+    assert _rounds_sig(a) == _rounds_sig(b), f"{tag}: rounds differ"
+    assert a.summary() == b.summary(), f"{tag}: summary differs"
+    ra, rb = a.resilience(), b.resilience()
+    for k in skip:
+        ra.pop(k)
+        rb.pop(k)
+    assert ra == rb, (tag, ra, rb)
+
+
+def _scenario_sim(spec, engine):
+    """``run_one``'s simulator, built for ``run_with_crashes`` to restart."""
+    plan = spec.fault_plan.resolve(spec.sim.max_time) \
+        if spec.fault_plan is not None else None
+    stream = scen.build_stream(spec, 0)
+    if plan is not None and not plan.is_empty:
+        stream = FaultInjector(stream, plan)
+    return Simulator(scen.build_jobs(spec, 0), VennScheduler(seed=0,
+                                                             device=DEV),
+                     cfg=spec.sim, stream=stream, engine=engine, faults=plan,
+                     device=DEV)
+
+
+def phase_scenarios():
+    """Every registered scenario at its library size on both drain engines,
+    then record/replay, audit bytes, a three-crash restore and the CLI."""
+    t_phase = time.perf_counter()
+    names = scen.scenario_names()
+    assert len(names) == 11, names
+    arr_metrics = {}
+    sums = {"match_segment": 0, "segmented_order": 0, "matcher_calls": 0,
+            "kernel_resorts": 0, "checkins": 0}
+    for name in names:
+        spec = scen.get_scenario(name)
+        m_arr, arr = _scenario_run(spec, "array")
+        m_py, py = _scenario_run(spec, "python")
+        _same_run(name, m_arr, m_py, skip=("degraded_segments",))
+        assert len(m_arr.rounds) > 0, name
+        assert all(math.isfinite(v) for v in m_arr.jcts.values()), name
+        assert arr["device"].startswith("cuda"), arr["device"]
+        # one match_segment launch a matcher call, one segmented_order launch
+        # a resort on either engine; the contract entries stay off the path
+        assert arr["launches"]["match_segment"] == arr["matcher_calls"], \
+            (name, arr["launches"], arr["matcher_calls"])
+        for res in (arr, py):
+            assert res["launches"]["segmented_order"] \
+                == res["kernel_resorts"], (name, res["launches"])
+            assert res["launches"]["segmented_rank"] == 0, res["launches"]
+            assert res["order_fallbacks"] == 0, (name, res)
+        assert py["launches"]["match_segment"] == 0, py["launches"]
+        # on the card only non-finite speeds may reach the sequential oracle
+        assert arr["degraded"]["exception"] == 0, (name, arr["degraded"])
+        assert arr["degraded"]["implausible"] == 0, (name, arr["degraded"])
+        assert arr["degraded_segments"] == arr["degraded"]["nonfinite"] \
+            == m_arr.degraded_segments, (name, arr)
+        if name == "flaky_ingest":
+            assert arr["degraded"]["nonfinite"] > 0, arr["degraded"]
+        else:
+            assert arr["degraded"]["nonfinite"] == 0, (name, arr["degraded"])
+        arr_metrics[name] = m_arr
+        sums["match_segment"] += arr["launches"]["match_segment"]
+        sums["segmented_order"] += arr["launches"]["segmented_order"] \
+            + py["launches"]["segmented_order"]
+        sums["matcher_calls"] += arr["matcher_calls"]
+        sums["kernel_resorts"] += arr["kernel_resorts"] + py["kernel_resorts"]
+        sums["checkins"] += arr["checkins"]
+        emit("scenario", {
+            "name": name, "checkins": arr["checkins"],
+            "rounds": len(m_arr.rounds), "avg_jct_s": m_arr.avg_jct,
+            "sched_invocations": arr["sched_invocations"],
+            "array_checkin_loop_s": arr["checkin_loop_s"],
+            "python_checkin_loop_s": py["checkin_loop_s"],
+            "array_wall_s": arr["wall_s"], "python_wall_s": py["wall_s"],
+            "stream_seconds": arr["stream_seconds"],
+            "segments": arr["segments"],
+            "matcher_calls": arr["matcher_calls"],
+            "matcher_rows": arr["matcher_rows"],
+            "matcher_max_rows": arr["matcher_max_rows"],
+            "matcher_s": arr["matcher_s"],
+            "matcher_host_us_per_call": arr["matcher_host_us_per_call"],
+            "resorts": {"array": arr["kernel_resorts"],
+                        "python": py["kernel_resorts"]},
+            "launches": {"array": arr["launches"],
+                         "python": py["launches"]},
+            "degraded": arr["degraded"],
+            "resilience": m_arr.resilience(), "metrics_identical": True})
+    assert sums["match_segment"] > 0 and sums["segmented_order"] > 0, sums
+
+    with tempfile.TemporaryDirectory(prefix="venn-smoke-") as tmp:
+        # record flash_crowd's stream on the array engine, replay it
+        spec = scen.get_scenario("flash_crowd")
+        trace = os.path.join(tmp, "flash_crowd.csv")
+        t0 = time.perf_counter()
+        m_rec, _ = _scenario_run(spec, "array", record=trace)
+        t_rec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_rep, rep = _scenario_run(spec, "array", replay=trace)
+        t_rep = time.perf_counter() - t0
+        _same_run("flash_crowd record", m_rec, arr_metrics["flash_crowd"])
+        _same_run("flash_crowd replay", m_rep, m_rec)
+        replay = {"scenario": "flash_crowd", "trace_bytes":
+                  os.path.getsize(trace), "record_s": t_rec,
+                  "replay_s": t_rep, "replay_checkins": rep["checkins"],
+                  "metrics_identical": True}
+
+        # the audit stream is byte-identical between the drain engines
+        audit = {}
+        for name in ("baseline_even", "blackout_storm"):
+            blobs = {}
+            for engine in ("array", "python"):
+                path = os.path.join(tmp, f"{name}.{engine}.audit.jsonl")
+                scen.run_scenario(name, scheds=["venn"], seeds=[0],
+                                  engine=engine, audit_out=path, device=DEV)
+                with open(path, "rb") as fh:
+                    blobs[engine] = fh.read()
+            assert blobs["array"] == blobs["python"], \
+                f"{name}: audit bytes differ between engines"
+            audit[name] = {"bytes": len(blobs["array"]),
+                           "records": blobs["array"].count(b"\n"),
+                           "identical": True}
+
+        # three crashes with lost work, restored from snapshots of the card's
+        # run, give the crash-free metrics
+        spec = scen.get_scenario("blackout_storm")
+        free = arr_metrics["blackout_storm"]
+        last = max(r.complete for r in free.rounds)
+        crash_times = [0.2 * last, 0.45 * last, 0.7 * last]
+        lag = 0.05 * last
+        t0 = time.perf_counter()
+        crashed = run_with_crashes(lambda: _scenario_sim(spec, "array"),
+                                   crash_times=crash_times,
+                                   ckpt_dir=os.path.join(tmp, "ckpt"),
+                                   snapshot_lag=lag)
+        t_crash = time.perf_counter() - t0
+        _same_run("blackout_storm crashes", crashed, free,
+                  skip=("recovery_events",))
+        assert crashed.resilience()["recovery_events"] == 3, \
+            crashed.resilience()
+        assert free.resilience()["recovery_events"] == 0
+        crash = {"scenario": "blackout_storm", "engine": "array",
+                 "crash_times_s": crash_times, "snapshot_lag_s": lag,
+                 "recovery_events": 3, "wall_s": t_crash,
+                 "metrics_identical": True}
+
+    # the CLI a user runs, with no --device: the card by default
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.scenarios", "run",
+         "baseline_even", "--sched", "venn,random", "--engine", "array"],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=900)
+    assert cli.returncode == 0, cli.stderr[-3000:]
+    speedup = [ln for ln in cli.stdout.splitlines()
+               if ln.startswith("speedup venn vs random")]
+    assert speedup, cli.stdout[-3000:]
+    emit("scenarios", {
+        "scenarios": names, "seed": 0, "scheduler": "venn",
+        "size": "library (one simulated week, 24 jobs)",
+        "checkins": sums["checkins"],
+        "match_segment_launches": sums["match_segment"],
+        "matcher_calls": sums["matcher_calls"],
+        "segmented_order_launches": sums["segmented_order"],
+        "kernel_resorts": sums["kernel_resorts"],
+        "record_replay": replay, "audit": audit, "crash_restore": crash,
+        "cli": {"returncode": cli.returncode, "speedup": speedup[0],
+                "wall_s": time.perf_counter() - t0},
+        "phase_wall_s": time.perf_counter() - t_phase})
+    return sums
 
 
 # --------------------------------------------------------------------------- #
@@ -1493,6 +1722,7 @@ def main() -> None:
         3.0 * 24 * 3600.0,
         "heavy_r50_j200: base_rate 50, 200 jobs, general requirement mix, "
         "seed 1, 3 simulated days (horizon cut from 30)")
+    scen_sums = phase_scenarios()
     fa, qz, dq = phase_fl_kernels()
     fl_launches = phase_fl_round()
     flash_rows, flash_serve = phase_flash_kernels()
@@ -1520,6 +1750,7 @@ def main() -> None:
              ms=seg[0]["ms"], plain_ms=seg[0]["plain_ms"],
              bound_ms=seg[0]["bound_ms"], bound_by=seg[0]["bound_by"],
              library_ms=None, on_path=True, **on_paths("match_segment"),
+             scenarios_launches=scen_sums["match_segment"],
              launches_grid=main_arr["launches"]["match_segment_grid"],
              dense_path_launches_grid=dense_arr["launches"][
                  "match_segment_grid"],
@@ -1547,6 +1778,7 @@ def main() -> None:
              bound_ms=rk[0]["order_bound_ms"],
              bound_by=rk[0]["order_bound_by"], library_ms=None, on_path=True,
              **on_paths("segmented_order"),
+             scenarios_launches=scen_sums["segmented_order"],
              shape="n=2000, one segment (no segment ids), f64 keys",
              other_shapes=[{k: rk[1][k] for k in (
                  "n", "segments", "order_ms", "order_plain_ms",

@@ -1,14 +1,14 @@
 """repro_torch.obs — zero-overhead-when-disabled observability for the repro.
 
-Three pieces, one switch (the JCT timeline renderer and the summarize CLI of
-the reference package are not part of this package yet):
+Four pieces, one switch:
 
 * :mod:`repro_torch.obs.trace` — span/event tracer → Chrome trace-event JSON
   (open in Perfetto: https://ui.perfetto.dev);
 * :mod:`repro_torch.obs.metrics` — counters / gauges / log-bucket histograms
   (cheap mergeable p50/p95/p99) → metrics JSONL;
 * :mod:`repro_torch.obs.audit` — the scheduler flight recorder (replan, grant
-  and queue-position records → audit JSONL).
+  and queue-position records → audit JSONL);
+* :mod:`repro_torch.obs.timeline` — per-job JCT decomposition (Fig. 11-style).
 
 Instrumented modules fetch the globals lazily::
 
@@ -35,6 +35,10 @@ Use :func:`enable`/:func:`disable` or the :func:`session` context manager::
         tracer.write("t.json")
         registry.write_jsonl("m.jsonl")
 
+``python -m repro_torch.obs summarize t.json [m.jsonl]`` prints top-spans by
+self-time, histogram percentile tables, and per-job timelines; its other
+verbs (``validate``, ``timeline``, ``contention``, ``audit``, ``merge``) are
+listed in :mod:`repro_torch.obs.__main__`.
 """
 from __future__ import annotations
 
@@ -48,13 +52,16 @@ from .audit import (AuditRecorder, DEFAULT_GRANT_SAMPLE, NULL_AUDIT,
                     read_audit)
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
                       NULL_REGISTRY, merge_records, read_jsonl)
+from .timeline import (JobTimeline, RoundSlice, build_timelines,
+                       render_timelines, timeline_records)
 from .trace import NULL_TRACER, Tracer, load_trace, validate_trace
 
 __all__ = [
-    "AuditRecorder", "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "Tracer", "disable", "enable", "get_audit", "get_registry", "get_tracer",
-    "load_trace", "merge_records", "read_audit", "read_jsonl", "session",
-    "validate_trace",
+    "AuditRecorder", "Counter", "Gauge", "Histogram", "JobTimeline",
+    "MetricsRegistry", "RoundSlice", "Tracer", "build_timelines", "disable",
+    "enable", "get_audit", "get_registry", "get_tracer", "load_trace",
+    "merge_records", "read_audit", "read_jsonl", "render_timelines",
+    "session", "timeline_records", "validate_trace",
 ]
 
 

@@ -120,9 +120,10 @@ class Simulator:
             raise ValueError(f"unknown engine {engine!r} "
                              "(expected 'python', 'array', or an engine "
                              "instance)")
-        # fault plan (duck-typed — repro_torch.faults.FaultPlan; the simulator only
-        # consumes blackout windows for response revocation, the stream-side
-        # faults live in the FaultInjector wrapper)
+        # fault plan (a repro_torch.faults.plan.FaultPlan, duck-typed): the
+        # simulator only consumes blackout windows for response revocation;
+        # the stream-side faults live in the repro_torch.faults.injector
+        # .FaultInjector that wraps ``stream`` (scenarios/runner.py::run_one)
         if faults is not None:
             faults = faults.resolve(self.cfg.max_time)
             self._fault_rng = np.random.default_rng(

@@ -48,7 +48,17 @@ def test_package_has_the_expected_modules():
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.models.attention", "repro_torch.serve",
                  "repro_torch.serve.engine", "repro_torch.launch",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.faults", "repro_torch.faults.plan",
+                 "repro_torch.faults.injector", "repro_torch.faults.recovery",
+                 "repro_torch.scenarios", "repro_torch.scenarios.spec",
+                 "repro_torch.scenarios.library",
+                 "repro_torch.scenarios.streams",
+                 "repro_torch.scenarios.trace_io",
+                 "repro_torch.scenarios.runner",
+                 "repro_torch.scenarios.__main__",
+                 "repro_torch.obs.timeline", "repro_torch.obs.contention",
+                 "repro_torch.obs.summarize", "repro_torch.obs.__main__"):
         assert name in MODULES, name
     csrc = PKG / "accel" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",

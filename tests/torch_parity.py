@@ -131,3 +131,40 @@ def reduced_pair(arch, seed=0, **overrides):
                            jmodel.init_params(jax.random.PRNGKey(seed)))
     params = params_from_jax(jax.tree.map(np.asarray, jparams), CPU)
     return jcfg, jmodel, jparams, cfg, build_model(cfg), params
+
+
+# ---- the scenario slice: both packages' specs at the reference tests' size
+
+def tiny(scenarios_mod, spec):
+    """``fast_scaled``, then 5 jobs over 1.5 simulated days (the reference's
+    ``tests/test_scenarios.py::_tiny``), in either package."""
+    from dataclasses import replace
+    spec = scenarios_mod.fast_scaled(spec)
+    return replace(spec, jobs=replace(spec.jobs, num_jobs=5),
+                   sim=replace(spec.sim, max_time=1.5 * 24 * 3600.0))
+
+
+def tiny_pair(name):
+    """The reference's and the port's tiny spec of one registered scenario."""
+    import repro.scenarios as ref
+    import repro_torch.scenarios as port
+    return (tiny(ref, ref.get_scenario(name)),
+            tiny(port, port.get_scenario(name)))
+
+
+def rounds_sig(m):
+    return [(r.job_id, r.round_index, r.submit, r.alloc_complete, r.complete,
+             r.demand, r.responses, r.failures, r.retries) for r in m.rounds]
+
+
+def assert_same_metrics(a, b, skip=()):
+    """Two runs' ``SimMetrics`` bit for bit: JCTs, rounds, ``summary()`` and
+    ``resilience()`` but for the counters named in ``skip``."""
+    assert a.jcts == b.jcts
+    assert rounds_sig(a) == rounds_sig(b)
+    assert a.summary() == b.summary()
+    ra, rb = a.resilience(), b.resilience()
+    for k in skip:
+        ra.pop(k)
+        rb.pop(k)
+    assert ra == rb
