@@ -29,23 +29,33 @@ federated-learning kernels (``fedavg_reduce``, ``quantize``, ``dequantize``)
 against their plain versions at llama3.2-1b's largest leaf
 (``fl_kernel_checks``), and two rounds of three jobs under one Venn scheduler,
 job 0 llama3.2-1b at full width (1 235 814 400 parameters): each granted
-client's seeded delta compressed to int8 and back, aggregated and applied by
-FedAdam (``fl_round``). Then serving: the two flash-attention kernels — the
-tensor-core one (``wgmma``, bf16) and the FMA one (f32), each row naming its
-route — against their plain version at the reference's test shapes, ragged
-lengths, a query offset and the serve shape, where the tensor-core kernel, the
-FMA kernel on the same inputs, the plain version and SDPA are timed in turns
-(``flash_kernel_checks``); and llama3.2-1b at full width serving four prompts
-of 1024 tokens for 32 new tokens through ``Engine.generate``, its prefill's
-attention in the tensor-core kernel, checked against a prefill on the plain
-version and against full re-forwards (``serve``). It imports ``repro_torch``
-only.
+client's local update (``make_local_update``: two SGD steps on its Dirichlet
+data shard, attention in the flash kernel) compressed to int8 and back,
+aggregated and applied by FedAdam (``fl_round``). Then serving: the two
+flash-attention kernels — the tensor-core one (``wgmma``, bf16) and the FMA
+one (f32), each row naming its route — against their plain version at the
+reference's test shapes, ragged lengths, a query offset and the serve shape,
+where the tensor-core kernel, the FMA kernel on the same inputs, the plain
+version and SDPA are timed in turns (``flash_kernel_checks``); and
+llama3.2-1b at full width serving four prompts of 1024 tokens for 32 new
+tokens through ``Engine.generate``, its prefill's attention in the
+tensor-core kernel, checked against a prefill on the plain version and
+against full re-forwards (``serve``). Then training: the
+gradient through the flash kernel (``FlashAttentionFn``: the kernel's
+forward, a plain recompute for its backward) against autograd through the
+plain version, alone at the serve shape and as every gradient leaf of
+llama3.2-1b at full width (bf16, 16 layers; f32, 2 layers), with the bare
+wrapper's missing gradient shown (``train_checks``); and ``python -m
+repro_torch.launch.train`` for llama3.2-1b at full width, 4 × 1024 tokens a
+step, 6 AdamW steps, one step more profiled, then a checkpoint and resume at
+smoke size (``train``). It imports ``repro_torch`` only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
 ``main_path``, ``dense_path``, one ``scenario`` per registered scenario,
 ``scenarios``, ``fl_kernel_checks``, ``fl_round_setup``,
 one ``fl_round_job`` per job and round, ``fl_round``,
-``flash_kernel_checks``, ``serve``), the card's name and power limit, the
+``flash_kernel_checks``, ``serve``, ``train_checks``, ``train``,
+``total_seconds``), the card's name and power limit, the
 ``kernels`` summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises;
 without a CUDA device the script exits non-zero before printing a result.
@@ -62,6 +72,7 @@ costs the same.)
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -89,12 +100,15 @@ from repro_torch.accel.kernels import build, replan_order, schedule_match
 from repro_torch.accel.kernels import match_segment as segment_mod
 from repro_torch.accel.kernels.stage import stage_for
 from repro_torch.accel.state import MatchState
+from repro_torch.ckpt import checkpoint as ckpt_mod
 from repro_torch.configs import get_config
 from repro_torch.core import SCHEDULERS, Job, JobRequest, VennScheduler
+from repro_torch.data import SyntheticLM, dirichlet_client_mixes
 from repro_torch.device import default_device
 from repro_torch.faults import FaultInjector, run_with_crashes
 from repro_torch.fed import aggregation as fed_aggregation
 from repro_torch.fed.aggregation import FedAdam, FedAvg, aggregate_deltas
+from repro_torch.fed.client import make_local_update
 from repro_torch.fed.compression import (QuantizeConfig, compress,
                                          compressed_bytes, decompress)
 from repro_torch.kernels import fedavg_reduce as fedavg_mod
@@ -102,6 +116,7 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops as fl_ops
 from repro_torch.kernels import quantize as quant_mod
 from repro_torch.kernels import ref as fl_ref
+from repro_torch.launch import train as train_mod
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, grow_caches
@@ -110,6 +125,8 @@ from repro_torch.sim import (JobTraceConfig, PopulationConfig, SimConfig,
 from repro_torch.sim.devices import (REQ_HIGHPERF, REQUIREMENT_CLASSES,
                                      DeviceGenerator)
 from repro_torch.sim.simulator import Simulator
+from repro_torch.train.optimizer import AdamW
+from repro_torch.train.train_step import value_and_grad
 
 # Published peaks of one H100 SXM: HBM bandwidth; and for the scalar f64 / i32
 # compares of segmented_rank the f64 rate outside the tensor cores, 34 TFLOP/s
@@ -1153,11 +1170,16 @@ def phase_fl_kernels():
 # --------------------------------------------------------------------------- #
 
 FL_ROUNDS = 2
-FL_JOBS = (  # (arch, reduced, demand per round, server)
-    ("llama3.2-1b", False, 8, FedAdam(lr=1e-2)),
-    ("stablelm-1.6b", True, 4, FedAvg(server_lr=1.0)),
-    ("qwen3-32b", True, 4, FedAvg(server_lr=1.0)),
+FL_JOBS = (  # (arch, reduced, demand per round, server, client lr)
+    # job 0 at full width: the reference client's default lr (the example
+    # has no full-width setting); jobs 1-2: the example's 0.15
+    ("llama3.2-1b", False, 8, FedAdam(lr=1e-2), 0.05),
+    ("stablelm-1.6b", True, 4, FedAvg(server_lr=1.0), 0.15),
+    ("qwen3-32b", True, 4, FedAvg(server_lr=1.0), 0.15),
 )
+# examples/fl_multijob_training.py: B 4 × T 16 a local step, 2 local steps,
+# the eval batch(8, seed=999)
+FL_B, FL_T, FL_LOCAL_STEPS = 4, 16, 2
 LLAMA_3_2_1B_PARAMS = 1_235_814_400
 
 
@@ -1213,24 +1235,33 @@ def _check_fedadam_step(server, old_params, agg, new_params, state):
     return ulps, mom
 
 
+def _fl_eval(model, params, batch) -> float:
+    with torch.no_grad():
+        return float(model.loss_fn(params, batch))
+
+
 def phase_fl_round():
     """``examples/fl_multijob_training.py``'s loop with the repo's settings:
     three jobs share one Venn scheduler and one device population; job 0 is
-    llama3.2-1b at full width.  A granted client's delta is made on the card
-    from a seed (``1e-3 · N(0, 1)`` f32 per leaf) in place of the local
-    update, compressed to int8 and decompressed; the server aggregates and
-    applies."""
+    llama3.2-1b at full width.  A granted client runs the real local update
+    on the card (``make_local_update``: two SGD steps on its Dirichlet data
+    shard, attention through the flash kernel, its backward a plain
+    recompute); its delta is compressed to int8 and decompressed; the server
+    aggregates and applies.  Each job's eval loss is read before and after
+    the two rounds on the example's eval batch."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     allocated_at_start = torch.cuda.memory_allocated()
     jobs, models, params, servers, states = [], [], [], [], []
-    for i, (arch, reduced, demand, server) in enumerate(FL_JOBS):
+    updaters, datas, evals = [], [], []
+    for i, (arch, reduced, demand, server, lr) in enumerate(FL_JOBS):
         cfg = get_config(arch)
         if reduced:
             cfg = cfg.reduced().with_(n_layers=2, vocab=128)
         model = build_model(cfg)
         p = model.init_params(torch.Generator(device=DEV).manual_seed(i), DEV)
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=FL_T, seed=i)
         jobs.append(Job(job_id=i, requirement=REQUIREMENT_CLASSES[i % 3],
                         demand_per_round=demand, total_rounds=FL_ROUNDS,
                         arrival_time=0.0))
@@ -1238,13 +1269,21 @@ def phase_fl_round():
         params.append(p)
         servers.append(server)
         states.append(server.init(p))
+        updaters.append(make_local_update(model, lr=lr,
+                                          local_steps=FL_LOCAL_STEPS))
+        datas.append(data)
+        evals.append({k: torch.from_numpy(v).to(DEV)
+                      for k, v in data.batch(8, seed=999).items()})
     assert models[0].n_params() == LLAMA_3_2_1B_PARAMS
     assert sum(t.numel() for t in tree_util.leaves(params[0])) \
         == LLAMA_3_2_1B_PARAMS
+    mixes = dirichlet_client_mixes(256, 8, alpha=0.3, seed=0)
+    eval_before = [_fl_eval(m, p, e) for m, p, e in zip(models, params, evals)]
     emit("fl_round_setup", {
         "memory_allocated_at_start": allocated_at_start,
         "memory_allocated_with_models_and_state":
-            torch.cuda.memory_allocated()})
+            torch.cuda.memory_allocated(),
+        "eval_loss_before": eval_before})
     venn = VennScheduler(seed=0, device=DEV)
     devgen = DeviceGenerator(PopulationConfig(seed=3, base_rate=5.0))
     cfg_q = QuantizeConfig()
@@ -1252,6 +1291,9 @@ def phase_fl_round():
     quant_mod.reset_launches()
     fedavg_mod.reset_launches()
     fed_aggregation.reset_counts()
+    flash_mod.reset_launches()
+    attn_mod.reset_counts()
+    orders_before = replan_order.launches_order
     torch.cuda.synchronize()
     t_phase = time.perf_counter()
     now = 0.0
@@ -1277,17 +1319,26 @@ def phase_fl_round():
             devs = assigned[job.job_id][:job.demand_per_round]
             n_leaves = len(tree_util.leaves(params[ji]))
             before = _fl_counts()
-            t_c = t_d = 0.0
+            bwd_before = flash_mod.backward_plain_calls
+            t_lu = t_c = t_d = 0.0
             c_bytes = raw_bytes = 0
-            deltas = []
-            for ci in range(len(devs)):
-                g = torch.Generator(device=DEV).manual_seed(
-                    1_000_000 * ji + 1000 * rnd + ci)
-                delta = tree_util.map(
-                    lambda p: torch.randn(p.shape, generator=g, device=DEV
-                                          ).mul_(1e-3), params[ji])
-                raw_bytes += sum(t.numel() * 4 for t in tree_util.leaves(delta))
+            deltas, loss_first, loss_last = [], [], []
+            for ci, dev in enumerate(devs):
+                mix = mixes[hash(dev.dev_id) % len(mixes)]
+                bs = [datas[ji].batch(FL_B, topic_mix=mix,
+                                      seed=1000 * rnd + ci + s)
+                      for s in range(FL_LOCAL_STEPS)]
+                batches = {k: torch.from_numpy(np.stack([b[k] for b in bs]))
+                           .to(DEV) for k in bs[0]}
+                if ji == 0:
+                    job0_batches = batches
                 torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                delta, metrics = updaters[ji](params[ji], batches)
+                loss_first.append(float(metrics["loss_first"]))
+                loss_last.append(float(metrics["loss_last"]))
+                t_lu += time.perf_counter() - t0
+                raw_bytes += sum(t.numel() * 4 for t in tree_util.leaves(delta))
                 t0 = time.perf_counter()
                 packed = compress(delta, cfg_q)
                 torch.cuda.synchronize()
@@ -1300,6 +1351,8 @@ def phase_fl_round():
                 t_d += time.perf_counter() - t0
                 del packed
             assert deltas, f"job {ji} round {rnd}: no client was granted"
+            assert all(math.isfinite(x) for x in loss_first + loss_last), \
+                (ji, rnd, loss_first, loss_last)
             allocated_before_aggregate = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             agg = aggregate_deltas(deltas, [1.0] * len(deltas))
@@ -1338,15 +1391,21 @@ def phase_fl_round():
             if ji == 0:
                 assert plain == 0 and clients == job.demand_per_round, \
                     (plain, clients)
+            bwd = flash_mod.backward_plain_calls - bwd_before
+            n_layers = models[ji].cfg.n_layers
+            assert bwd == n_layers * FL_LOCAL_STEPS * clients, (ji, rnd, bwd)
             rows.append(dict(
                 job=ji, arch=FL_JOBS[ji][0], round=rnd, clients=clients,
                 n_params=models[ji].n_params(), leaves=n_leaves,
-                server=type(servers[ji]).__name__,
+                server=type(servers[ji]).__name__, client_lr=FL_JOBS[ji][4],
+                local_update_s=t_lu, loss_first=loss_first,
+                loss_last=loss_last,
                 compress_s=t_c, decompress_s=t_d, aggregate_s=t_a,
                 apply_s=t_p, compressed_bytes=c_bytes, raw_bytes=raw_bytes,
                 uplink_ratio=c_bytes / raw_bytes,
                 launches={"quantize": q, "dequantize": dq,
                           "fedavg_reduce": fa},
+                backward_plain_calls=bwd,
                 plain_leaves=plain,
                 memory_allocated_before_aggregate=allocated_before_aggregate,
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -1356,14 +1415,47 @@ def phase_fl_round():
     wall = time.perf_counter() - t_phase
     totals = {"quantize": quant_mod.quantize_launches,
               "dequantize": quant_mod.dequantize_launches,
-              "fedavg_reduce": fedavg_mod.launches}
-    assert all(v > 0 for v in totals.values()), totals
+              "fedavg_reduce": fedavg_mod.launches,
+              "flash_attention_wgmma": flash_mod.launches_wgmma,
+              "flash_attention": flash_mod.launches_fma,
+              "backward_plain_calls": flash_mod.backward_plain_calls,
+              "segmented_order": replan_order.launches_order - orders_before}
+    assert all(totals[k] > 0 for k in ("quantize", "dequantize",
+                                       "fedavg_reduce",
+                                       "flash_attention_wgmma")), totals
+    # every forward of the local updates on the tensor-core kernel: bf16,
+    # head_dim 64 (job 0) and 16 (jobs 1-2); none on the plain route
+    assert totals["flash_attention"] == 0, totals
+    assert attn_mod.attention_plain_calls == 0, attn_mod.attention_plain_calls
+    assert totals["flash_attention_wgmma"] == totals["backward_plain_calls"]
     assert states[0].step.item() == FL_ROUNDS
+    eval_after = [_fl_eval(m, p, e) for m, p, e in zip(models, params, evals)]
+    assert all(math.isfinite(x) for x in eval_before + eval_after)
+    peak = torch.cuda.max_memory_allocated()
+    # one more local update of job 0 (its last client's batches), timed
+    # alone and under the profiler: where local_update_s goes
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    updaters[0](params[0], job0_batches)
+    torch.cuda.synchronize()
+    wall_lu = time.perf_counter() - w0
+    _, prof = _profiled(lambda: updaters[0](params[0], job0_batches))
+    prof.update(wall_s=wall_lu,
+                device_idle_share=1.0 - prof["device_busy_s"] / wall_lu)
+    for key in ("masked_first_fit", "match_segment", "segmented_rank",
+                "segmented_order", "flash_kernel"):
+        prof.pop(key + "_device_us_per_launch")
+    assert peak < torch.cuda.get_device_properties(DEV).total_memory
     emit("fl_round", {
         "rounds": FL_ROUNDS, "jobs": [a for a, *_ in FL_JOBS],
         "job0_n_params": LLAMA_3_2_1B_PARAMS, "wall_s": wall,
+        "local_update": {"batch": FL_B, "seq": FL_T,
+                         "local_steps": FL_LOCAL_STEPS,
+                         "client_lr": [j[4] for j in FL_JOBS]},
+        "eval_loss_before": eval_before, "eval_loss_after": eval_after,
         "launches": totals, "plain_leaves": fed_aggregation.plain_leaves,
-        "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        "attention_plain_calls": attn_mod.attention_plain_calls,
+        "max_memory_allocated": peak, "profile_job0_local_update": prof})
     return totals
 
 
@@ -1704,6 +1796,339 @@ def phase_serve():
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 10. training: gradients through the flash kernel, then the trainer
+# --------------------------------------------------------------------------- #
+
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 4, 1024, 6
+# dq, dk, dv of FlashAttentionFn vs autograd through the plain version,
+# relative to each gradient's largest magnitude
+FLASH_GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@contextlib.contextmanager
+def _attention_route(route: str):
+    """``chunked_attention``'s differentiable route swapped for one block:
+    ``"plain"`` — autograd through the plain version, forward and backward
+    (how the reference trains); ``"wrapper"`` — the kernel's wrapper called
+    as it was before ``FlashAttentionFn`` (an output with no ``grad_fn``)."""
+    saved = flash_mod.FlashAttentionFn
+
+    class Route:
+        @staticmethod
+        def apply(q, k, v, causal, window, q_offset):
+            fn = (flash_mod.flash_attention_plain if route == "plain"
+                  else flash_mod.flash_attention)
+            return fn(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset)
+    flash_mod.FlashAttentionFn = Route
+    try:
+        yield
+    finally:
+        flash_mod.FlashAttentionFn = saved
+
+
+def check_flash_grad(dtype, seed, timed=False):
+    """``FlashAttentionFn`` at the serve and train shape against autograd
+    through the plain version, on the same inputs and output gradient."""
+    B, T, H, Hkv, D = TRAIN_B, TRAIN_T, 32, 8, 64
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((B, T, H, D), generator=g, device=DEV).to(dtype)
+    k = torch.randn((B, T, Hkv, D), generator=g, device=DEV).to(dtype)
+    v = torch.randn((B, T, Hkv, D), generator=g, device=DEV).to(dtype)
+    do = torch.randn((B, T, H, D), generator=g, device=DEV).to(dtype)
+    ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def fn_fwd_bwd():
+        out = flash_mod.FlashAttentionFn.apply(*ins, True, 0, 0)
+        return out, torch.autograd.grad(out, ins, do)
+
+    def plain_fwd_bwd():
+        out = flash_mod.flash_attention_plain(*ins, causal=True)
+        return out, torch.autograd.grad(out, ins, do)
+    out_k, got = fn_fwd_bwd()
+    out_p, want = plain_fwd_bwd()
+    torch.cuda.synchronize()
+    row = {"B": B, "T": T, "S": T, "H": H, "Hkv": Hkv, "D": D,
+           "causal": True, "dtype": str(dtype).removeprefix("torch."),
+           "route": flash_mod.flash_route(dtype, D),
+           "forward_max_abs_err": float((out_k - out_p).detach().float()
+                                        .abs().max()),
+           "tolerance": FLASH_GRAD_TOL[dtype],
+           "tolerance_rule": "max |d_fn - d_plain| / max |d_plain| per "
+                             "gradient"}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a.float()).all()), (name, dtype)
+        rel = float((a.float() - b.float()).abs().max()) \
+            / float(b.float().abs().max())
+        row[name + "_rel_err"] = rel
+        assert rel <= FLASH_GRAD_TOL[dtype], row
+    if timed:
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        def kernel_fwd():
+            with torch.no_grad():
+                return flash_mod.flash_attention(q, k, v, causal=True)
+        ms = time_interleaved({"fn": fn_fwd_bwd, "kernel_fwd": kernel_fwd,
+                               "plain": plain_fwd_bwd,
+                               "library": sdpa_fwd_bwd},
+                              reps={"fn": 3, "kernel_fwd": 20, "plain": 3,
+                                    "library": 10})
+        # forward 4·D a valid (query, key) pair and head, the backward's
+        # four products 8·D: 12·D; bytes: q, k, v, do read, dq, dk, dv and
+        # the output written, once each
+        pairs = B * H * _valid_pairs(T, T, True, 0, 0)
+        flops = 12 * D * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            * q.element_size()
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        row.update(fwd_bwd_ms=ms["fn"], kernel_fwd_ms=ms["kernel_fwd"],
+                   backward_ms=ms["fn"] - ms["kernel_fwd"],
+                   plain_fwd_bwd_ms=ms["plain"],
+                   library_fwd_bwd_ms=ms["library"],
+                   library="scaled_dot_product_attention(is_causal, "
+                           "enable_gqa) forward + backward",
+                   timing_runs=ms["runs"], bound_flops=flops,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return row
+
+
+def _grads_vs_plain(model, params, batch, leaf_tol):
+    """Loss and gradients with attention in the kernel (FlashAttentionFn)
+    against attention in the plain version; per-leaf errors relative to the
+    plain gradient's largest magnitude."""
+    flash_mod.reset_launches()
+    loss_k, grads_k = value_and_grad(model.loss_fn, params, batch)
+    launches = {"launches_wgmma": flash_mod.launches_wgmma,
+                "launches_fma": flash_mod.launches_fma,
+                "backward_plain_calls": flash_mod.backward_plain_calls}
+    with _attention_route("plain"):
+        loss_p, grads_p = value_and_grad(model.loss_fn, params, batch)
+    rel = {}
+    for (path, a), b in zip(tree_util.leaves_with_path(grads_k),
+                            tree_util.leaves(grads_p)):
+        assert bool(torch.isfinite(a.float()).all()), path
+        scale = float(b.float().abs().max())
+        rel["/".join(map(str, path))] = \
+            float((a.float() - b.float()).abs().max()) / max(scale, 1e-30)
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= leaf_tol, (worst, rel[worst], leaf_tol)
+    return loss_k, loss_p, grads_p, rel, launches
+
+
+def phase_train_checks():
+    """Gradients through the hand-written flash kernel on the card:
+    ``FlashAttentionFn`` alone at the serve shape (bf16 and f32), then the
+    loss and every gradient leaf of llama3.2-1b at full width on one
+    1024-token batch of ``SyntheticLM`` with attention in the kernel,
+    against the same with attention in the plain version — bf16 at all 16
+    layers (the tensor-core route), f32 at 2 layers (the FMA route) — and
+    the f32 model once more through the bare wrapper, whose output has no
+    ``grad_fn``: the fault ``FlashAttentionFn`` fixes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    flash_rows = [check_flash_grad(torch.bfloat16, 400, timed=True),
+                  check_flash_grad(torch.float32, 401)]
+    torch.cuda.empty_cache()
+    data = SyntheticLM(vocab=128256, seq_len=TRAIN_T, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(1, seed=0).items()}
+    out = {"flash_attention_fn": flash_rows}
+    for dtype, layers, tol in (("bfloat16", 16, 2.0 ** -4),
+                               ("float32", 2, 1e-4)):
+        cfg = get_config("llama3.2-1b").with_(n_layers=layers, dtype=dtype)
+        model = build_model(cfg)
+        # the parameters are declared bf16 (as in the reference); the f32
+        # run casts the same seeded values
+        params = tree_util.map(
+            lambda t: t.to(getattr(torch, dtype)),
+            model.init_params(torch.Generator(device=DEV).manual_seed(0), DEV))
+        loss_k, loss_p, grads_p, rel, launches = _grads_vs_plain(
+            model, params, batch, tol)
+        loss_err = abs(float(loss_k) - float(loss_p))
+        row = {"arch": cfg.name, "dtype": dtype, "n_layers": layers,
+               "n_params": model.n_params(), "batch": [1, TRAIN_T],
+               "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+               "loss_abs_err": loss_err, "leaf_rel_err": rel,
+               "max_leaf_rel_err": max(rel.values()),
+               "leaf_tolerance": tol, "launches": launches}
+        route = "wgmma" if dtype == "bfloat16" else "fma"
+        assert launches["launches_" + route] == layers, launches
+        assert launches["backward_plain_calls"] == layers, launches
+        if dtype == "bfloat16":
+            row["loss_tolerance"] = 8 * _bf16_ulp(float(loss_p))
+            assert loss_err <= row["loss_tolerance"], row
+        else:
+            # without FlashAttentionFn: the kernel's output carries no
+            # gradient, so wq, wk and wv get none — a relative error of 1
+            with _attention_route("wrapper"):
+                _, grads_w = value_and_grad(model.loss_fn, params, batch)
+            lost = {}
+            for (path, a), b in zip(tree_util.leaves_with_path(grads_w),
+                                    tree_util.leaves(grads_p)):
+                if path[-1] in ("wq", "wk", "wv"):
+                    assert float(a.abs().max()) == 0.0, path
+                    lost["/".join(map(str, path))] = float(
+                        (a - b).abs().max() / b.abs().max())
+            assert lost and min(lost.values()) > tol, lost
+            row["without_fn_wqkv_rel_err"] = lost
+            del grads_w
+        out[f"llama3.2-1b_{dtype}_{layers}_layers"] = row
+        del params, grads_p
+        torch.cuda.empty_cache()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit("train_checks", out)
+    return out
+
+
+def _train_bound(model, tokens, T, steps_b):
+    """The least time of one AdamW step of ``model`` on ``tokens`` tokens
+    (``steps_b`` sequences of ``T``): the matmuls, ``6·N·tokens`` at the bf16
+    peak; attention forward and backward (``12·D`` a valid pair and head)
+    at the same peak; AdamW's 22 bytes a parameter (read p, g in bf16, mu,
+    nu in f32; write mu, nu, p) at the memory rate."""
+    cfg = model.cfg
+    n = model.n_params()
+    matmul = 6 * n * tokens
+    pairs = steps_b * cfg.n_heads * _valid_pairs(T, T, True, 0, 0)
+    attn = 12 * cfg.head_dim * pairs * cfg.n_layers
+    adam_bytes = 22 * n
+    parts = {"matmul_ms": matmul / PEAK_BF16_FLOPS * 1e3,
+             "attention_ms": attn / PEAK_BF16_FLOPS * 1e3,
+             "adamw_ms": adam_bytes / PEAK_BYTES_PER_S * 1e3}
+    return sum(parts.values()), parts, {"matmul_flops": matmul,
+                                        "attention_flops": attn,
+                                        "adamw_bytes": adam_bytes}
+
+
+def _run_cli(argv):
+    """``launch.train.run`` (what ``main`` runs) with its printed log."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train_mod.run(argv)
+    return res, buf.getvalue().splitlines()
+
+
+def phase_train():
+    """``python -m repro_torch.launch.train`` for llama3.2-1b at full width:
+    4 sequences of 1024 tokens a step, AdamW at the reference CLI's lr, 6
+    steps, every attention forward in the tensor-core kernel and every
+    attention backward a plain recompute; one step more under the profiler;
+    then a checkpoint and resume at llama3.2-1b-smoke (the full-width state
+    is 12.4 GB a save, so that run writes none)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", "llama3.2-1b", "--batch", str(TRAIN_B),
+            "--seq", str(TRAIN_T), "--steps", str(TRAIN_STEPS),
+            "--lr", "3e-3", "--log-every", "1"]
+    flash_mod.reset_launches()
+    attn_mod.reset_counts()
+    t0 = time.perf_counter()
+    res, log = _run_cli(argv)
+    wall = time.perf_counter() - t0
+    launches = {"launches_wgmma": flash_mod.launches_wgmma,
+                "launches_fma": flash_mod.launches_fma,
+                "backward_plain_calls": flash_mod.backward_plain_calls}
+    plain_calls = attn_mod.attention_plain_calls
+    peak = torch.cuda.max_memory_allocated()
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    assert res["n_params"] == LLAMA_3_2_1B_PARAMS
+    losses = res["losses"]
+    assert len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)), \
+        losses
+    per_step = cfg.n_layers * TRAIN_STEPS
+    assert launches == {"launches_wgmma": per_step, "launches_fma": 0,
+                        "backward_plain_calls": per_step}, launches
+    assert plain_calls == 0, plain_calls
+    step_s = res["step_s"]
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    tokens = TRAIN_B * TRAIN_T
+    bound_ms, bound_parts, bound_work = _train_bound(model, tokens, TRAIN_T,
+                                                     TRAIN_B)
+
+    # one step more under the profiler, on the trained parameters: the
+    # device's busy share and where its time goes
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_T, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(TRAIN_B, seed=TRAIN_STEPS).items()}
+    opt = AdamW(lr=3e-3)
+    params, state = res["params"], res["opt_state"]
+    del res
+
+    def one_step():
+        loss, grads = value_and_grad(model.loss_fn, params, batch)
+        return loss, opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall_step = time.perf_counter() - w0
+    w0 = time.perf_counter()
+    _, prof = _profiled(one_step)
+    prof.update(wall_s=wall_step,
+                wall_s_under_profiler=time.perf_counter() - w0,
+                device_idle_share=1.0 - prof["device_busy_s"] / wall_step)
+    for key in ("masked_first_fit", "match_segment", "segmented_rank",
+                "segmented_order", "flash_kernel"):
+        prof.pop(key + "_device_us_per_launch")
+    del params, state
+    torch.cuda.empty_cache()
+
+    # checkpoint and resume at smoke size: 4 steps saving every 2, then a
+    # second call to 6 steps resumes at step 4 from the saved state
+    with tempfile.TemporaryDirectory() as d:
+        base = ["--arch", "llama3.2-1b-smoke", "--ckpt-dir", d,
+                "--ckpt-every", "2", "--log-every", "1"]
+        first, log1 = _run_cli(base + ["--steps", "4"])
+        saved_steps = sorted(os.listdir(d))
+        like = (first["params"], first["opt_state"])
+        restored, manifest = ckpt_mod.restore(d, like)
+        bit_equal = all(a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in zip(tree_util.leaves(restored),
+                                        tree_util.leaves(like)))
+        assert bit_equal and manifest["step"] == 3, manifest["step"]
+        assert int(restored[1].step) == 4
+        second, log2 = _run_cli(base + ["--steps", "6"])
+        assert "resumed from step 3" in log2, log2
+        assert second["start"] == 4 and len(second["losses"]) == 2, second
+        assert all(map(math.isfinite, first["losses"] + second["losses"]))
+        assert ckpt_mod.latest_step(d) == 5
+        resume = {"arch": "llama3.2-1b-smoke", "first_call_steps": 4,
+                  "saved": saved_steps, "restored_bit_equal": bit_equal,
+                  "restored_step": manifest["step"],
+                  "second_call_start": second["start"],
+                  "losses": first["losses"] + second["losses"],
+                  "log": log2}
+        del first, second, restored, like
+
+    out = {
+        "arch": cfg.name, "n_params": LLAMA_3_2_1B_PARAMS,
+        "dtype": "bfloat16", "batch": TRAIN_B, "seq": TRAIN_T,
+        "steps": TRAIN_STEPS, "optimizer": "AdamW(lr=3e-3)", "remat": False,
+        "losses": losses, "step_s": step_s,
+        "step_ms_median_steps_2_6": step_ms,
+        "tokens_per_step": tokens, "tokens_per_s": tokens / step_ms * 1e3,
+        "bound_ms": bound_ms, "bound_parts": bound_parts,
+        "bound_work": bound_work, "share_of_bound": bound_ms / step_ms,
+        "max_memory_allocated": peak, "wall_s": wall,
+        "launches": launches, "attention_plain_calls": plain_calls,
+        "log": log, "profile_one_step": prof, "resume": resume}
+    emit("train", out)
+    return out
+
+
 def main() -> None:
     smi = phase_env()
     ff, rk, seg = phase_kernels()
@@ -1727,6 +2152,8 @@ def main() -> None:
     fl_launches = phase_fl_round()
     flash_rows, flash_serve = phase_flash_kernels()
     serve = phase_serve()
+    train_checks = phase_train_checks()
+    train = phase_train()
 
     print(smi, flush=True)
     src = "src/repro_torch/accel/kernels/csrc/"
@@ -1779,6 +2206,7 @@ def main() -> None:
              bound_by=rk[0]["order_bound_by"], library_ms=None, on_path=True,
              **on_paths("segmented_order"),
              scenarios_launches=scen_sums["segmented_order"],
+             fl_round_launches=fl_launches["segmented_order"],
              shape="n=2000, one segment (no segment ids), f64 keys",
              other_shapes=[{k: rk[1][k] for k in (
                  "n", "segments", "order_ms", "order_plain_ms",
@@ -1822,10 +2250,19 @@ def main() -> None:
         bound_by=flash_serve["bound_by"],
         library_ms=flash_serve["library_ms"],
         shape=f"B={SERVE_B} T=S={SERVE_PROMPT} H=32 Hkv=8 D=64 causal bf16")
+    fn_grad = train_checks["flash_attention_fn"][0]
     kernels.append(dict(
         name="flash_attention_wgmma", route="cuda",
         source=fl_src + "flash_attention_wgmma.cu",
         launches=serve["launches"]["launches_wgmma"],
+        train_launches=train["launches"]["launches_wgmma"],
+        train_backward_plain_calls=train["launches"]["backward_plain_calls"],
+        fl_round_launches=fl_launches["flash_attention_wgmma"],
+        train_shape_fwd_bwd_ms=fn_grad["fwd_bwd_ms"],
+        train_shape_backward_ms=fn_grad["backward_ms"],
+        train_shape_plain_fwd_bwd_ms=fn_grad["plain_fwd_bwd_ms"],
+        train_shape_library_fwd_bwd_ms=fn_grad["library_fwd_bwd_ms"],
+        train_shape_fwd_bwd_bound_ms=fn_grad["bound_ms"],
         max_abs_err=max(r["max_abs_err"] for r in wgmma_rows),
         ms=flash_serve["ms"], **flash_common,
         tflops=flash_serve["tflops"],
@@ -1840,6 +2277,8 @@ def main() -> None:
         name="flash_attention", route="cuda",
         source=fl_src + "flash_attention.cu",
         launches=serve["launches"]["launches_fma"],
+        train_launches=train["launches"]["launches_fma"],
+        fl_round_launches=fl_launches["flash_attention"],
         max_abs_err=max(r["max_abs_err"] for r in fma_rows),
         ms=flash_serve["fma_ms"], **flash_common,
         tflops=flash_serve["fma_tflops"],

@@ -42,6 +42,16 @@ GFLOP, 17.4 µs at 989 TFLOP/s, against 42 MB (12.5 µs) of bytes.
 A wrapper takes the plain version only for a tensor that lies on the CPU; for
 a CUDA tensor it launches the routed kernel or raises: no route gives way to
 the other or to the plain version.
+
+**Gradient.** The kernels write their result through ``ctypes`` into a fresh
+tensor, which has no ``grad_fn``: called directly, the wrapper's output
+carries no gradient to ``q``, ``k`` or ``v``.  :class:`FlashAttentionFn` is
+the differentiable form: its forward is the wrapper (the routed kernel on a
+card), its backward recomputes the attention of the saved ``q, k, v``
+through :func:`flash_attention_plain` and differentiates that.  The
+reference has no backward kernel either: its models train through the
+plain ``chunked_attention``.  Each backward counts itself in
+:data:`backward_plain_calls`.
 """
 from __future__ import annotations
 
@@ -56,17 +66,19 @@ NEG_INF = -2.0 ** 30  # large-negative in f32; avoids nan from (-inf) - (-inf)
 HEAD_DIMS = (16, 32, 64, 80, 128)   # both kernels' head_dim instantiations
 
 # kernel launches made by this module's wrapper, by route; ``launches`` is
-# their sum
+# their sum; ``backward_plain_calls``: backwards of FlashAttentionFn (each a
+# plain recompute)
 launches_wgmma = 0
 launches_fma = 0
 launches = 0
+backward_plain_calls = 0
 
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    global launches, launches_wgmma, launches_fma
-    launches = launches_wgmma = launches_fma = 0
+    global launches, launches_wgmma, launches_fma, backward_plain_calls
+    launches = launches_wgmma = launches_fma = backward_plain_calls = 0
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -259,3 +271,31 @@ def launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         launches_wgmma += 1
     launches = launches_wgmma + launches_fma
     build.check_launch(code, f"flash_attention ({route})")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: ``apply(q, k, v, causal,
+    window, q_offset)``.  Forward: the wrapper (the routed kernel on a CUDA
+    tensor, the plain version on the CPU).  Backward: autograd through
+    :func:`flash_attention_plain` recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        global backward_plain_calls
+        causal, window, q_offset = ctx.mask
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_plain(*inputs, causal=causal, window=window,
+                                        q_offset=q_offset)
+        grads = torch.autograd.grad(out, inputs, grad_out)
+        backward_plain_calls += 1
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None)

@@ -8,7 +8,11 @@ softcap and with ``Dv == D`` goes to the kernel's wrapper, which launches the
 CUDA kernel on a card (or raises: a head_dim the kernel is not built for, a
 dtype other than f32 / bf16, a failed build or launch) and runs its plain
 version on the CPU; a call where some query row has no valid key is outside
-the kernel's contract and refused on both devices.  The two calls outside
+the kernel's contract and refused on both devices.  Where a gradient is
+wanted (grad mode on, and q, k or v requiring one) the same forward runs
+through ``FlashAttentionFn``, whose backward recomputes the attention in the
+plain version; otherwise the wrapper is called directly, so a forward with
+no gradient (serving) is unchanged.  The two calls outside
 the kernel's function — gemma2's softcap, and MLA's ``Dv != D`` (not ported
 yet) — run the plain version, the reference's online softmax over KV chunks,
 on either device, and count themselves in :data:`attention_plain_calls`.
@@ -50,9 +54,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     global attention_plain_calls
     if attn_softcap == 0 and v.shape[-1] == q.shape[-1]:
-        return flash.flash_attention(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), causal=causal,
-                                     window=window, q_offset=q_offset)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return flash.FlashAttentionFn.apply(q, k, v, causal, window,
+                                                q_offset)
+        return flash.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
     attention_plain_calls += 1
     return flash.flash_attention_plain(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset,

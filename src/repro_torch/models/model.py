@@ -9,15 +9,22 @@ packages and a parameter tree carries across (:mod:`.convert`).
 
 Entry points (functions of parameter trees, as in the reference):
 
-* ``forward(params, batch)``     — full-sequence logits (and MoE aux)
-* ``loss_fn(params, batch)``     — token cross-entropy (forward only: its
-  gradient comes with the training slice)
+* ``forward(params, batch, *, remat=False)`` — full-sequence logits (and
+  MoE aux)
+* ``loss_fn(params, batch, *, remat=False)`` — token cross-entropy, the
+  trainer's and the FL client's loss; differentiable by autograd
 * ``prefill(params, batch)``     — last-position logits + decode caches
 * ``decode_step(params, caches, token, cache_len)``
 
 A group's layers are stacked on a leading ``count`` axis, as the reference
 scans them; here a Python loop walks the layers, taking each layer's
-parameters (and cache) as views of the stacked tensors.  Caches keep the
+parameters (and cache) as views of the stacked tensors: a group's leaves
+are taken apart once with ``torch.unbind``, so that the gradient of a
+stacked leaf is put together by one stack of its layers' gradients (an
+indexed view per layer would add a zero tensor of the whole stack into it
+once a layer).  ``remat=True`` recomputes each layer's forward in the
+backward (``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint``); it changes no value and no gradient bit.  Caches keep the
 reference's tree — one dict a group, stacked leaves ``(count, B, S, Hkv,
 D)`` — so they compare leaf by leaf; ``decode_step`` writes into them in
 place.  Dense and audio families only for now (:mod:`.blocks`).
@@ -28,6 +35,7 @@ import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import tree as tree_util
 from ..configs.base import ModelConfig
@@ -39,9 +47,14 @@ from .common import (abstract_params, count_params, is_spec, layer_norm,
                      materialize, rms_norm, softcap, spec, stack_specs)
 
 
-def _layer(tree: Any, i: int) -> Any:
-    """Layer ``i``'s slice (views) of a tree of stacked tensors."""
-    return tree_util.map(lambda t: t[i], tree)
+def _layers(tree: Any, count: int) -> List[Any]:
+    """The ``count`` layer slices (views) of a tree of stacked tensors, each
+    leaf taken apart by one ``torch.unbind`` (whose gradient is one
+    stack)."""
+    split = [torch.unbind(t, 0) for t in tree_util.leaves(tree)]
+    treedef = tree_util.structure(tree)
+    return [tree_util.unflatten(treedef, [s[c] for s in split])
+            for c in range(count)]
 
 
 class Model:
@@ -88,6 +101,10 @@ class Model:
         return materialize(self.param_specs(), generator,
                            resolve_device(device))
 
+    def abstract_params(self) -> Any:
+        """The parameter tree as ``meta`` tensors (shapes and dtypes)."""
+        return abstract_params(self.param_specs())
+
     def n_params(self) -> int:
         return count_params(self.param_specs())
 
@@ -130,24 +147,30 @@ class Model:
         w = params["embed"].T if cfg.tie_embeddings else params["head"]
         return softcap(x @ w, cfg.logit_softcap)
 
-    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _period(self, g: BlockGroup, lp, x, aux):
+        """One repetition of a group's period of layers."""
+        for i, desc in enumerate(g.descs):
+            x, a = apply_layer(lp[f"l{i}"], x, desc, self.cfg)
+            aux = aux + a
+        return x, aux
+
+    def forward(self, params, batch, *, remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence logits.  Returns (logits, aux_loss)."""
-        cfg = self.cfg
         x = self._embed(params, batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.groups):
-            blocks = params[f"blocks{gi}"]
-            for c in range(g.count):
-                lp = _layer(blocks, c)
-                for i, desc in enumerate(g.descs):
-                    x, a = apply_layer(lp[f"l{i}"], x, desc, cfg)
-                    aux_total = aux_total + a
+            for lp in _layers(params[f"blocks{gi}"], g.count):
+                if remat:
+                    x, aux_total = checkpoint(self._period, g, lp, x,
+                                              aux_total, use_reentrant=False)
+                else:
+                    x, aux_total = self._period(g, lp, x, aux_total)
         return self._head(params, x), aux_total
 
-    def loss_fn(self, params, batch) -> torch.Tensor:
-        """Mean token cross-entropy (+ 0.01 · aux) in f32; no gradient
-        path is promised yet (the training slice)."""
-        logits, aux = self.forward(params, batch)
+    def loss_fn(self, params, batch, *, remat: bool = False) -> torch.Tensor:
+        """Mean token cross-entropy (+ 0.01 · aux) in f32."""
+        logits, aux = self.forward(params, batch, remat=remat)
         logits32 = logits.to(torch.float32)
         lse = torch.logsumexp(logits32, dim=-1)
         gold = torch.gather(logits32, -1,
@@ -162,10 +185,8 @@ class Model:
         x = self._embed(params, batch)
         caches: List[Any] = []
         for gi, g in enumerate(self.groups):
-            blocks = params[f"blocks{gi}"]
             per_layer = []
-            for c in range(g.count):
-                lp = _layer(blocks, c)
+            for lp in _layers(params[f"blocks{gi}"], g.count):
                 cs = {}
                 for i, desc in enumerate(g.descs):
                     x, cs[f"l{i}"] = apply_layer_prefill(lp[f"l{i}"], x, desc,
@@ -184,9 +205,8 @@ class Model:
         cfg = self.cfg
         x = self._embed(params, {"tokens": token})
         for gi, g in enumerate(self.groups):
-            blocks, cache = params[f"blocks{gi}"], caches[gi]
-            for c in range(g.count):
-                lp, lc = _layer(blocks, c), _layer(cache, c)
+            for lp, lc in zip(_layers(params[f"blocks{gi}"], g.count),
+                              _layers(caches[gi], g.count)):
                 for i, desc in enumerate(g.descs):
                     x, _ = apply_layer_decode(lp[f"l{i}"], x, desc, cfg,
                                               lc[f"l{i}"], cache_len)

@@ -1,2 +1,2 @@
-"""Training substrate of the port: the optimizers (the train step comes
-with the model slice)."""
+"""Training substrate of the port: the optimizers and the one-device train,
+prefill and decode steps."""

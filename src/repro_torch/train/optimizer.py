@@ -51,6 +51,16 @@ class AdamW:
                           mu=tree_util.map(_zeros_f32, params),
                           nu=tree_util.map(_zeros_f32, params))
 
+    def abstract_state(self, abstract_params: Any) -> AdamWState:
+        """The state's shapes and dtypes as ``meta`` tensors, from ``meta``
+        (or any) parameters: no storage is allocated."""
+        def f32(p):
+            return torch.empty(p.shape, dtype=torch.float32, device="meta")
+        return AdamWState(step=torch.empty((), dtype=torch.int32,
+                                           device="meta"),
+                          mu=tree_util.map(f32, abstract_params),
+                          nu=tree_util.map(f32, abstract_params))
+
     def update(self, grads: Any, state: AdamWState, params: Any
                ) -> Tuple[Any, AdamWState]:
         g32 = tree_util.map(_f32, grads)

@@ -58,7 +58,11 @@ def test_package_has_the_expected_modules():
                  "repro_torch.scenarios.runner",
                  "repro_torch.scenarios.__main__",
                  "repro_torch.obs.timeline", "repro_torch.obs.contention",
-                 "repro_torch.obs.summarize", "repro_torch.obs.__main__"):
+                 "repro_torch.obs.summarize", "repro_torch.obs.__main__",
+                 "repro_torch.data", "repro_torch.data.synthetic",
+                 "repro_torch.fed.client", "repro_torch.train.train_step",
+                 "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+                 "repro_torch.launch.train"):
         assert name in MODULES, name
     csrc = PKG / "accel" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",

@@ -168,3 +168,32 @@ def assert_same_metrics(a, b, skip=()):
         ra.pop(k)
         rb.pop(k)
     assert ra == rb
+
+
+# ---- the training slice: gradients and deltas leaf by leaf, client data
+
+def leaves_close(got, want, rel, what=""):
+    """A port tree against a reference tree, leaf by leaf in tree order:
+    ``|got - want| <= rel · max|want|``."""
+    import jax
+    from repro_torch import tree as tree_util
+    got_l, want_l = tree_util.leaves(got), jax.tree.leaves(want)
+    assert len(got_l) == len(want_l), what
+    for i, (g, w) in enumerate(zip(got_l, want_l)):
+        w = np.asarray(w, np.float32)
+        g = g.detach().float().numpy()
+        assert g.shape == w.shape, (what, i)
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = float(np.abs(g - w).max())
+        assert err <= rel * scale, (what, i, err, scale)
+
+
+def client_batches(vocab, T, B, steps, seed=1, client=17):
+    """``examples/fl_multijob_training.py``'s client data: ``steps``
+    minibatches of one client's Dirichlet topic mix, stacked on a leading
+    axis (NumPy)."""
+    from repro_torch.data import SyntheticLM, dirichlet_client_mixes
+    mix = dirichlet_client_mixes(256, 8, alpha=0.3, seed=0)[client]
+    data = SyntheticLM(vocab=vocab, seq_len=T, seed=seed)
+    bs = [data.batch(B, topic_mix=mix, seed=1000 + s) for s in range(steps)]
+    return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
