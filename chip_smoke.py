@@ -40,22 +40,34 @@ version and SDPA are timed in turns (``flash_kernel_checks``); and
 llama3.2-1b at full width serving four prompts of 1024 tokens for 32 new
 tokens through ``Engine.generate``, its prefill's attention in the
 tensor-core kernel, checked against a prefill on the plain version and
-against full re-forwards (``serve``). Then training: the
+against full re-forwards (``serve``); then the five configurations of the
+MoE, MLA, Mamba-2, hybrid and cross-attention families at published width
+(mamba2-1.3b and llama-3.2-vision-11b's text decoder whole, mixtral-8x22b
+and deepseek-v3-671b at two layers, jamba-v0.1-52b at one period of
+eight), each served the same way one at a time, its prefill through the
+kernel held against the plain route where it launches the kernel and its
+cached decode against full re-forwards in f32 (``serve_families``). Then
+training: the
 gradient through the flash kernel (``FlashAttentionFn``: the kernel's
 forward, a plain recompute for its backward) against autograd through the
 plain version, alone at the serve shape and as every gradient leaf of
-llama3.2-1b at full width (bf16, 16 layers; f32, 2 layers), with the bare
-wrapper's missing gradient shown (``train_checks``); and ``python -m
+llama3.2-1b at full width (bf16, 16 layers; f32, 2 layers) and of one
+period of llama-3.2-vision-11b (its cross-attention on the bidirectional
+T 1024 × S 1601 shape), with the bare wrapper's missing gradient shown
+(``train_checks``); ``python -m
 repro_torch.launch.train`` for llama3.2-1b at full width, 4 × 1024 tokens a
 step, 6 AdamW steps, one step more profiled, then a checkpoint and resume at
-smoke size (``train``). It imports ``repro_torch`` only.
+smoke size (``train``); and the trainer for the whole mamba2-1.3b, 6 steps,
+with its first step's gradient norms and a profiled step
+(``train_families``). It imports ``repro_torch`` only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
 ``main_path``, ``dense_path``, one ``scenario`` per registered scenario,
 ``scenarios``, ``fl_kernel_checks``, ``fl_round_setup``,
 one ``fl_round_job`` per job and round, ``fl_round``,
-``flash_kernel_checks``, ``serve``, ``train_checks``, ``train``,
-``total_seconds``), the card's name and power limit, the
+``flash_kernel_checks``, ``serve``, ``serve_families``, ``train_checks``,
+``train``, ``train_families``, ``total_seconds``), the card's name and power
+limit, the
 ``kernels`` summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises;
 without a CUDA device the script exits non-zero before printing a result.
@@ -679,6 +691,24 @@ def _tenx_jobs(seed: int = 1):
     return jobs
 
 
+KERNEL_KINDS = (  # (kind, substrings of a device row's name), first match
+    ("flash_wgmma", ("flash_wgmma_kernel",)),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "cublas", "splitK")),
+    ("copy", ("Memcpy", "Memset", "copy", "Copy", "cat_", "CatArray")),
+    ("gather_scatter", ("index", "gather", "scatter", "Index")),
+    ("sort", ("sort", "Sort", "radix")),
+    ("reduce", ("reduce", "Reduce", "softmax", "Softmax", "cumsum", "scan")),
+    ("elementwise", ("elementwise", "vectorized", "Elementwise")),
+)
+
+
+def _kernel_kind(name: str) -> str:
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
 def _profiled(run):
     """``run()`` under ``torch.profiler``: its result, and the device time by
     kernel (kernel and memcpy rows only — an operator's row would repeat the
@@ -698,6 +728,12 @@ def _profiled(run):
                                  "device_s": e.self_device_time_total / 1e6}
                                 for e in top[:12]]}
     prof["device_ops"] = sum(e.count for e in rows)
+    kinds = {}
+    for e in rows:
+        kinds[_kernel_kind(e.key)] = kinds.get(_kernel_kind(e.key), 0.0) \
+            + e.self_device_time_total / 1e6
+    prof["device_s_by_kind"] = dict(sorted(kinds.items(),
+                                           key=lambda kv: -kv[1]))
     for name, key in (("masked_first_fit", "masked_first_fit"),
                       ("match_segment", "match_segment_kernel"),
                       ("segmented_rank", "segmented_rank_kernel<false>"),
@@ -1482,6 +1518,10 @@ FLASH_EXTRA = [
     (1, 130, 130, 2, 1, 128, False, 50, 0),
     (1, 33, 97, 2, 2, 32, True, 40, 64),
     (1, 500, 500, 16, 16, 80, False, 0, 0),      # hubert-xlarge's heads
+    # llama-3.2-vision's cross-attention: 1024 text rows to 1601 vision rows
+    (4, 1024, 1601, 32, 8, 128, False, 0, 0),
+    # mixtral-8x22b's prefill: 48 heads, a window of 4096 (wider than T)
+    (4, 1024, 1024, 48, 8, 128, True, 4096, 0),
 ]
 FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
@@ -1797,6 +1837,218 @@ def phase_serve():
 
 
 # --------------------------------------------------------------------------- #
+# 9b. serving the MoE, MLA, Mamba-2, hybrid and cross-attention families
+# --------------------------------------------------------------------------- #
+
+# (arch, depth overrides, cut): published widths, depth cut to fit one card
+FAMILIES = (
+    ("mamba2-1.3b", {}, "whole: 48 layers"),
+    ("llama-3.2-vision-11b", {},
+     "whole text decoder: 40 layers (8 cross-attention), vision_seq 1601 x "
+     "7680 (the stub frontend's patch embeddings)"),
+    ("mixtral-8x22b", {"n_layers": 2}, "n_layers 2 of 56"),
+    ("jamba-v0.1-52b", {"n_layers": 8},
+     "one period: n_layers 8 of 32 (1 attention, 7 Mamba-2, 4 MoE)"),
+    ("deepseek-v3-671b", {"n_layers": 2, "n_dense_layers": 1},
+     "n_layers 2 of 61: one dense layer, one layer of 256 experts"),
+)
+
+
+def _attention_layers(model):
+    """(flash launches, plain attention calls) of one prefill: MLA layers
+    go plain (``Dv != D``), every other self- and cross-attention layer
+    through the kernel."""
+    n = sum(g.count * sum(d.mixer in ("attn", "cross") for d in g.descs)
+            for g in model.groups)
+    mla = sum(g.count * sum(d.mixer == "attn" for d in g.descs)
+              for g in model.groups) if model.cfg.use_mla else 0
+    return n - mla, mla
+
+
+def _family_batch(cfg, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_B, SERVE_PROMPT), dtype=np.int32)).to(DEV)}
+    if cfg.family == "vlm":
+        g = torch.Generator(device=DEV).manual_seed(seed)
+        batch["vision_embeds"] = torch.randn(
+            (SERVE_B, cfg.vision_seq, cfg.vision_dim), generator=g,
+            device=DEV).to(torch.bfloat16)
+    return batch
+
+
+def _widen_(tree):
+    """Every floating leaf of a nested dict of tensors to f32, in place,
+    one leaf at a time (the bf16 leaf freed as its copy is made)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _widen_(v)
+        elif v.is_floating_point() and v.dtype != torch.float32:
+            tree[k] = v.float()
+            del v
+
+
+def _decode_vs_reforward(model, params, batch, logits, caches, scale):
+    """Check (b): ``SERVE_NEW`` greedy cached decode steps, each step's
+    logits against the last row of a full re-forward of every token so
+    far, within 2^-4 of ``scale`` (the largest prefill logit)."""
+    tol = 2.0 ** -4 * scale
+    caches = grow_caches(model, caches, SERVE_NEW)
+    toks = batch["tokens"]
+    worst, under_margin, steps, greedy = 0.0, 0, [], []
+    for i in range(SERVE_NEW):
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        greedy.append(tok)
+        toks = torch.cat([toks, tok.to(toks.dtype)], dim=1)
+        logits, caches = model.decode_step(params, caches, tok,
+                                           SERVE_PROMPT + i)
+        full, _ = model.forward(params, dict(batch, tokens=toks))
+        ref_last = full[:, -1, :].float()
+        del full
+        dec = logits[:, -1, :].float()
+        assert bool(torch.isfinite(dec).all()), ("decode logits", i)
+        err = float((dec - ref_last).abs().max())
+        top2 = torch.topk(ref_last, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        same = torch.argmax(dec, -1) == torch.argmax(ref_last, -1)
+        decided = margin > tol
+        under_margin += int((~decided).sum())
+        assert bool(same[decided].all()), ("greedy token", i, err)
+        assert err <= tol, (model.cfg.name, "decode vs re-forward", i, err,
+                            tol)
+        worst = max(worst, err)
+        steps.append(err)
+    return {"steps": SERVE_NEW, "max_abs_err_by_step": steps,
+            "max_abs_err": worst, "tolerance": tol,
+            "tolerance_rule": "2^-4 of the largest prefill logit",
+            "rows": SERVE_NEW * SERVE_B, "rows_under_margin": under_margin,
+            "greedy": torch.cat(greedy, dim=1).cpu().numpy()}
+
+
+def serve_family(arch, overrides, cut, smi, seed):
+    """One family at published width through ``Engine.generate`` (bf16,
+    seeded weights): a warm-up, the timed call of ``SERVE_NEW`` tokens, (a)
+    kernel vs plain prefill where the kernel runs, one prefill + 4 decode
+    steps under the profiler, then (b) cached decode vs full re-forwards in
+    f32 (MoE at a capacity that drops nothing)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_family = time.perf_counter()
+    cfg = get_config(arch).with_(**overrides)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(seed),
+                               DEV)
+    batch = _family_batch(cfg, seed)
+    eng = Engine(cfg, params, device=DEV)
+    eng.generate(batch, max_new=2)                 # warm-up
+    torch.cuda.synchronize()
+    flash_mod.reset_launches()
+    attn_mod.reset_counts()
+    gen, stats = eng.generate(batch, max_new=SERVE_NEW)
+    launches = {"launches_wgmma": flash_mod.launches_wgmma,
+                "launches_fma": flash_mod.launches_fma}
+    plain_calls = attn_mod.attention_plain_calls
+    peak = torch.cuda.max_memory_allocated()
+    n_kernel, n_plain = _attention_layers(model)
+    assert gen.shape == (SERVE_B, SERVE_NEW)
+    assert ((gen >= 0) & (gen < cfg.vocab)).all()
+    assert launches == {"launches_wgmma": n_kernel, "launches_fma": 0}, \
+        (arch, launches, n_kernel)
+    assert plain_calls == n_plain, (arch, plain_calls, n_plain)
+
+    out = {"arch": arch, "cut": cut, "gpu": smi,
+           "n_layers": cfg.n_layers, "n_params": model.n_params(),
+           "n_active_params": model.n_active_params(), "dtype": "bfloat16",
+           "batch": SERVE_B, "prompt": SERVE_PROMPT, "max_new": SERVE_NEW,
+           "capacity_factor": cfg.capacity_factor if cfg.n_experts else None,
+           "prefill_s": stats.prefill_s, "decode_s": stats.decode_s,
+           "decode_ms_per_step": stats.decode_s / SERVE_NEW * 1e3,
+           "tokens_per_s": SERVE_B * SERVE_NEW / stats.decode_s,
+           "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / stats.prefill_s,
+           "max_memory_allocated": peak,
+           "launches": {"flash_attention": flash_mod.launches, **launches},
+           "attention_plain_calls": plain_calls}
+
+    with torch.no_grad():
+        logits_k, _ = model.prefill(params, batch)
+        scale = float(logits_k.float().abs().max())
+        assert bool(torch.isfinite(logits_k.float()).all()), arch
+        # (a) prefill through the kernel == prefill through the plain version
+        if n_kernel:
+            logits_p, _ = _plain_prefill(model, params, batch)
+            tol_a = 8 * _bf16_ulp(scale)
+            err_a = float((logits_k.float() - logits_p.float()).abs().max())
+            assert err_a <= tol_a, (arch, "prefill kernel vs plain", err_a,
+                                    tol_a)
+            out["check_a_prefill_kernel_vs_plain"] = {
+                "max_abs_err": err_a, "tolerance": tol_a,
+                "logits_max_abs": scale,
+                "tolerance_rule": "8 bf16 ulps at the largest logit"}
+            del logits_p
+        del logits_k
+
+    # one prefill + 4 decode steps under the profiler; the idle share
+    # against the same work's wall time without it (median of three)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        w0 = time.perf_counter()
+        eng.generate(batch, max_new=4)
+        walls.append(time.perf_counter() - w0)
+    wall = float(np.median(walls))
+    _, prof = _profiled(lambda: eng.generate(batch, max_new=4))
+    prof.update(wall_s=wall, wall_s_runs=walls,
+                device_idle_share=1.0 - prof["device_busy_s"] / wall)
+    for key in ("masked_first_fit", "match_segment", "segmented_rank",
+                "segmented_order", "flash_kernel"):
+        prof.pop(key + "_device_us_per_launch")
+    out["profile_prefill_plus_4_decode"] = prof
+    del eng
+
+    # (b) cached decode == full re-forward, in f32 (the bf16 weights
+    # widened, exactly): in bf16 a rounding apart flips a near-tied MoE
+    # route, and a random Mamba-2 stack amplifies bf16 rounding past the
+    # bound in the reference as in the port — neither says anything of the
+    # cache.  MoE at capacity_factor = n_experts / top_k, where no token
+    # can be dropped (decode's N = 4 and the re-forward's N = 4224 have
+    # other capacities otherwise)
+    _widen_(params)
+    batch = {k: v.float() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    cf_b = cfg.n_experts / cfg.top_k if cfg.n_experts else None
+    model_b = build_model(cfg.with_(capacity_factor=cf_b) if cf_b else cfg)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        logits, caches = model_b.prefill(params, batch)
+        check_b = _decode_vs_reforward(model_b, params, batch, logits,
+                                       caches, float(logits.abs().max()))
+        del caches, logits
+    check_b.pop("greedy")
+    check_b.update(capacity_factor=cf_b, dtype="float32")
+    out["check_b_decode_vs_reforward"] = check_b
+    out["sample_tokens"] = gen[0][:12].tolist()
+    out["family_wall_s"] = time.perf_counter() - t_family
+    del params, batch, model, model_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_families(smi):
+    """The five configurations the dense slice could not run, served one
+    at a time (each freed before the next)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = [serve_family(arch, ov, cut, smi, seed=10 + i)
+            for i, (arch, ov, cut) in enumerate(FAMILIES)]
+    out = {"families": rows, "gpu": smi,
+           "launches_wgmma": sum(r["launches"]["launches_wgmma"]
+                                 for r in rows),
+           "attention_plain_calls": sum(r["attention_plain_calls"]
+                                        for r in rows)}
+    emit("serve_families", out)
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # 10. training: gradients through the flash kernel, then the trainer
 # --------------------------------------------------------------------------- #
 
@@ -1986,9 +2238,52 @@ def phase_train_checks():
         out[f"llama3.2-1b_{dtype}_{layers}_layers"] = row
         del params, grads_p
         torch.cuda.empty_cache()
+    out["llama-3.2-vision-11b_bfloat16_5_layers"] = _vision_grads_vs_plain()
     out["phase_wall_s"] = time.perf_counter() - t_phase
     emit("train_checks", out)
     return out
+
+
+def _vision_grads_vs_plain():
+    """llama-3.2-vision-11b at full width, one period (4 self-attention
+    layers and the cross-attention layer), bf16: the loss and every
+    gradient leaf with attention in the kernel against the plain route, on
+    one 1024-token batch with seeded vision embeddings.  The cross layer
+    holds ``FlashAttentionFn`` on the bidirectional ``T 1024, S 1601``
+    shape."""
+    cfg = get_config("llama-3.2-vision-11b").with_(n_layers=5)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(1),
+                               DEV)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_T, seed=1)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(1, seed=0).items()}
+    g = torch.Generator(device=DEV).manual_seed(1)
+    batch["vision_embeds"] = torch.randn(
+        (1, cfg.vision_seq, cfg.vision_dim), generator=g,
+        device=DEV).to(torch.bfloat16)
+    tol = 2.0 ** -4
+    loss_k, loss_p, grads_p, rel, launches = _grads_vs_plain(
+        model, params, batch, tol)
+    assert launches == {"launches_wgmma": cfg.n_layers, "launches_fma": 0,
+                        "backward_plain_calls": cfg.n_layers}, launches
+    loss_err = abs(float(loss_k) - float(loss_p))
+    row = {"arch": cfg.name, "dtype": "bfloat16", "n_layers": cfg.n_layers,
+           "cut": "one period of 5 (4 self-attention, 1 cross-attention) "
+                  "of 40 layers",
+           "n_params": model.n_params(), "batch": [1, TRAIN_T],
+           "vision": [1, cfg.vision_seq, cfg.vision_dim],
+           "cross_attention_shape": "T 1024, S 1601, H 32, Hkv 8, D 128, "
+                                    "bidirectional",
+           "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_abs_err": loss_err,
+           "loss_tolerance": 8 * _bf16_ulp(float(loss_p)),
+           "leaf_rel_err": rel, "max_leaf_rel_err": max(rel.values()),
+           "leaf_tolerance": tol, "launches": launches}
+    assert loss_err <= row["loss_tolerance"], row
+    del params, grads_p
+    torch.cuda.empty_cache()
+    return row
 
 
 def _train_bound(model, tokens, T, steps_b):
@@ -2129,6 +2424,85 @@ def phase_train():
     return out
 
 
+def _first_step(arch, names):
+    """The trainer's first step again (its seeded initial parameters and
+    batch 0): the largest per-layer gradient norm of each leaf in
+    ``names``, and the step's gradient (loss and backward, no update)
+    under the profiler."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(0),
+                               DEV)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_T, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(TRAIN_B, seed=0).items()}
+    _, grads = value_and_grad(model.loss_fn, params, batch)
+    norms = {}
+    for path, gr in tree_util.leaves_with_path(grads):
+        if path[-1] in names:
+            assert bool(torch.isfinite(gr.float()).all()), path
+            per_layer = gr.float().flatten(1).norm(dim=1)
+            norms[path[-1]] = max(norms.get(path[-1], 0.0),
+                                  float(per_layer.max()))
+    assert sorted(norms) == sorted(names), norms
+    del grads
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    value_and_grad(model.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    _, prof = _profiled(lambda: value_and_grad(model.loss_fn, params, batch))
+    prof.update(wall_s=wall,
+                device_idle_share=1.0 - prof["device_busy_s"] / wall)
+    for key in ("masked_first_fit", "match_segment", "segmented_rank",
+                "segmented_order", "flash_kernel", "flash_wgmma_kernel"):
+        prof.pop(key + "_device_us_per_launch")
+    del params
+    torch.cuda.empty_cache()
+    return norms, prof
+
+
+def phase_train_families(smi):
+    """``python -m repro_torch.launch.train --arch mamba2-1.3b --batch 4
+    --seq 1024``: the whole published model, 6 AdamW steps, every loss
+    finite; and the first step's gradient norms of ``a_log``, ``dt_bias``
+    and ``w_dt`` — the leaves the reference's chunk-256 scan makes NaN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arch = "mamba2-1.3b"
+    argv = ["--arch", arch, "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+            "--steps", str(TRAIN_STEPS), "--lr", "3e-3", "--log-every", "1"]
+    flash_mod.reset_launches()
+    attn_mod.reset_counts()
+    t0 = time.perf_counter()
+    res, log = _run_cli(argv)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_s = res["losses"], res["step_s"]
+    n_params = res["n_params"]
+    del res
+    torch.cuda.empty_cache()
+    assert len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)), \
+        losses
+    # attention-free: no flash launch, no plain attention
+    assert flash_mod.launches == 0 and attn_mod.attention_plain_calls == 0
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    tokens = TRAIN_B * TRAIN_T
+    norms, prof = _first_step(arch, ("a_log", "dt_bias", "w_dt"))
+    out = {"arch": arch, "gpu": smi, "n_params": n_params,
+           "cut": "none: 48 layers, ssm_chunk 256", "dtype": "bfloat16",
+           "batch": TRAIN_B, "seq": TRAIN_T, "steps": TRAIN_STEPS,
+           "optimizer": "AdamW(lr=3e-3)", "losses": losses, "step_s": step_s,
+           "step_ms_median_steps_2_6": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "max_memory_allocated": peak, "wall_s": wall,
+           "first_step_max_layer_grad_norm": norms,
+           "profile_first_step": prof, "log": log}
+    emit("train_families", out)
+    return out
+
+
 def main() -> None:
     smi = phase_env()
     ff, rk, seg = phase_kernels()
@@ -2152,8 +2526,10 @@ def main() -> None:
     fl_launches = phase_fl_round()
     flash_rows, flash_serve = phase_flash_kernels()
     serve = phase_serve()
+    families = phase_serve_families(smi)
     train_checks = phase_train_checks()
     train = phase_train()
+    phase_train_families(smi)
 
     print(smi, flush=True)
     src = "src/repro_torch/accel/kernels/csrc/"
@@ -2255,6 +2631,7 @@ def main() -> None:
         name="flash_attention_wgmma", route="cuda",
         source=fl_src + "flash_attention_wgmma.cu",
         launches=serve["launches"]["launches_wgmma"],
+        families_launches=families["launches_wgmma"],
         train_launches=train["launches"]["launches_wgmma"],
         train_backward_plain_calls=train["launches"]["backward_plain_calls"],
         fl_round_launches=fl_launches["flash_attention_wgmma"],

@@ -7,7 +7,8 @@ on ``cuda:0``.
 The reference's flags (``repro/launch/serve.py``), plus ``--device``
 (``cpu`` runs the host path; without it a missing card is an error).
 Parameters are made from ``--seed`` (no checkpoint is read); the prompt is
-seeded NumPy tokens.  A two-token warm-up runs before the timed call.
+seeded NumPy tokens, and for a ``vlm`` config the vision embeddings are
+standard-normal draws of the same generator, in bf16.  A two-token warm-up runs before the timed call.
 """
 from __future__ import annotations
 
@@ -46,6 +47,9 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab, (args.batch, args.prompt),
                                     dtype=np.int32)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.vision_seq, cfg.vision_dim))).to(torch.bfloat16)
 
     eng = Engine(cfg, params, temperature=args.temperature, seed=args.seed,
                  device=device)

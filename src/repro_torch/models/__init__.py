@@ -1,6 +1,6 @@
 """Models: parameter declarations (specs, block programs, init), the
 carrying of parameter trees across from the JAX reference, and the forwards
-of the dense and audio configurations (full sequence, prefill, decode)."""
+of every registered configuration (full sequence, prefill, decode)."""
 from .common import DTYPES, ParamSpec, count_params, is_spec, materialize, spec
 from .convert import params_from_jax, params_to_numpy
 from .model import Model, build_model

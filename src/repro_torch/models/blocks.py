@@ -10,26 +10,27 @@ every 2nd); deepseek has a 3-layer dense prefix group before the MoE group.
 
 The layer forwards — full sequence (:func:`apply_layer`), prefill with its
 decode cache (:func:`apply_layer_prefill`) and one decode step
-(:func:`apply_layer_decode`) — cover ``mixer == "attn"`` without MLA and
-``ffn == "mlp"``: every dense and audio configuration (llama3.2-1b,
-qwen3-32b's qk-norm, stablelm-1.6b's LayerNorm and partial rotary,
-gemma2-27b's local/global layers, softcaps and sandwich norms, hubert-xlarge
-bidirectional).  Mamba, cross-attention, MoE and MLA raise
-``NotImplementedError`` until they are ported (ROADMAP 1.11).
+(:func:`apply_layer_decode`) — cover every mixer (GQA attention, MLA,
+gated cross-attention to the projected vision embeddings, Mamba-2) and
+every feed-forward (gated / plain MLP, MoE with its aux loss): all ten
+registered configurations.  Decode writes each layer's cache — KV, MLA's
+latent entry, Mamba's state and conv tails — into the given tensors in
+place.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
-from .attention import chunked_attention, decode_attention
+from .attention import (MLAWeights, chunked_attention, decode_attention,
+                        mla_attention, mla_decode)
 from .common import ParamSpec, apply_rope, layer_norm, rms_norm, spec
 from .ffn import gated_mlp, gated_mlp_specs, mlp, mlp_specs
-from .mamba import mamba_specs
-from .moe import moe_specs
+from .mamba import MambaState, mamba_block, mamba_decode, mamba_specs
+from .moe import moe_ffn, moe_specs
 
 
 @dataclass(frozen=True)
@@ -177,23 +178,6 @@ def layer_specs(desc: LayerDesc, cfg: ModelConfig) -> Dict[str, Any]:
 
 # --------------------------------------------------------------- forward
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP 1.11: the "
-        f"forwards still missing)")
-
-
-def _check_ported(desc: LayerDesc, cfg: ModelConfig) -> None:
-    if desc.mixer == "attn" and cfg.use_mla:
-        raise _not_ported("MLA attention (mla_attention, mla_decode)")
-    if desc.mixer == "mamba":
-        raise _not_ported("the Mamba-2 mixer")
-    if desc.mixer == "cross":
-        raise _not_ported("cross-attention")
-    if desc.ffn == "moe":
-        raise _not_ported("the MoE feed-forward")
-
-
 def _apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     if cfg.norm == "layernorm":
@@ -214,19 +198,85 @@ def _gqa_attention(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     return o.reshape(B, T, cfg.n_heads * cfg.head_dim) @ p["wo"]
 
 
+# a Mamba layer's cache keys, in MambaState's field order
+MAMBA_CACHE = ("ssm", "cx", "cb", "cc")
+
+
+def _mla(lp: Dict[str, Any]) -> MLAWeights:
+    return MLAWeights(**{k: lp["attn"][k] for k in MLAWeights._fields})
+
+
+def _mla_kw(cfg: ModelConfig) -> Dict[str, Any]:
+    return dict(n_heads=cfg.n_heads, nope=cfg.qk_nope_dim,
+                rope_dim=cfg.qk_rope_dim, v_dim=cfg.v_head_dim,
+                rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+
+
+def _mamba_kw(cfg: ModelConfig) -> Dict[str, Any]:
+    return dict(n_heads=cfg.ssm_heads, head_dim=cfg.ssm_head_dim,
+                d_state=cfg.ssm_state, n_groups=cfg.ssm_groups,
+                norm_eps=cfg.norm_eps)
+
+
+def _cross_kv(p: Dict[str, Any], vis: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys (k-normed) and values of the projected vision
+    embeddings ``vis`` (B, Nv, d_model): the layer's decode cache."""
+    B = vis.shape[0]
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    k = rms_norm((vis @ p["wk"]).reshape(B, -1, hkv, dh), p["k_norm"],
+                 cfg.norm_eps)
+    v = (vis @ p["wv"]).reshape(B, -1, hkv, dh)
+    return k, v
+
+
+def _cross_q(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+             ) -> torch.Tensor:
+    B, T, _ = x.shape
+    return rms_norm((x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.head_dim),
+                    p["q_norm"], cfg.norm_eps)
+
+
+def _cross_out(p: Dict[str, Any], o: torch.Tensor) -> torch.Tensor:
+    """The gated output: ``tanh(gate_attn)`` times the projected heads."""
+    B, T = o.shape[:2]
+    return torch.tanh(p["gate_attn"]) * (o.reshape(B, T, -1) @ p["wo"])
+
+
+def _cross_attention(p: Dict[str, Any], x: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated cross-attention of ``x`` (B, T, d) to the vision keys and
+    values: bidirectional."""
+    o = chunked_attention(_cross_q(p, x, cfg), k, v, causal=False,
+                          kv_chunk=cfg.kv_chunk)
+    return _cross_out(p, o)
+
+
 def apply_layer(lp: Dict[str, Any], x: torch.Tensor, desc: LayerDesc,
-                cfg: ModelConfig, *, q_offset: int = 0
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence (train/prefill) layer.  Returns (x, aux_loss)."""
-    _check_ported(desc, cfg)
+                cfg: ModelConfig, *, vis: Optional[torch.Tensor] = None,
+                q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence (train/prefill) layer.  Returns (x, aux_loss).
+    ``vis``: the projected vision embeddings (cross-attention layers)."""
     if desc.mixer == "attn":
         x = x + _gqa_mixer(lp, x, cfg, desc, q_offset)
+    elif desc.mixer == "cross":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        x = x + _cross_attention(lp["attn"], h, *_cross_kv(lp["attn"], vis,
+                                                           cfg), cfg)
+    elif desc.mixer == "mamba":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        x = x + mamba_block(lp["mamba"], h, chunk=cfg.ssm_chunk,
+                            **_mamba_kw(cfg))
     return _apply_ffn(lp, x, desc, cfg)
 
 
 def _gqa_mixer(lp, x, cfg, desc, q_offset):
     h = _apply_norm(lp["ln_attn"], x, cfg)
-    o = _gqa_attention(lp["attn"], h, cfg, desc, q_offset)
+    if cfg.use_mla:
+        o, _ = mla_attention(h, _mla(lp), q_offset=q_offset,
+                             kv_chunk=cfg.kv_chunk, **_mla_kw(cfg))
+    else:
+        o = _gqa_attention(lp["attn"], h, cfg, desc, q_offset)
     if cfg.post_norm:
         o = _apply_norm(lp["ln_attn_post"], o, cfg)
     return o
@@ -264,27 +314,43 @@ def _window_tail(k: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def apply_layer_prefill(lp: Dict[str, Any], x: torch.Tensor, desc: LayerDesc,
-                        cfg: ModelConfig
+                        cfg: ModelConfig, *, vis: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Like apply_layer but also emits this layer's decode cache."""
-    _check_ported(desc, cfg)
     cache: Dict[str, Any] = {}
     if desc.mixer == "attn":
         h = _apply_norm(lp["ln_attn"], x, cfg)
-        B, T, _ = x.shape
-        q, k, v = _qkv(lp["attn"], h, cfg, _positions(0, T, x.device))
-        o = chunked_attention(q, k, v, causal=desc.causal, window=desc.window,
-                              attn_softcap=cfg.attn_softcap,
-                              kv_chunk=cfg.kv_chunk)
-        o = o.reshape(B, T, -1) @ lp["attn"]["wo"]
-        if desc.window > 0:
-            cache = {"k": _window_tail(k, desc.window),
-                     "v": _window_tail(v, desc.window)}
+        if cfg.use_mla:
+            o, lat = mla_attention(h, _mla(lp), kv_chunk=cfg.kv_chunk,
+                                   **_mla_kw(cfg))
+            cache = {"lat": lat}
         else:
-            cache = {"k": k, "v": v}
+            B, T, _ = x.shape
+            q, k, v = _qkv(lp["attn"], h, cfg, _positions(0, T, x.device))
+            o = chunked_attention(q, k, v, causal=desc.causal,
+                                  window=desc.window,
+                                  attn_softcap=cfg.attn_softcap,
+                                  kv_chunk=cfg.kv_chunk)
+            o = o.reshape(B, T, -1) @ lp["attn"]["wo"]
+            if desc.window > 0:
+                cache = {"k": _window_tail(k, desc.window),
+                         "v": _window_tail(v, desc.window)}
+            else:
+                cache = {"k": k, "v": v}
         if cfg.post_norm:
             o = _apply_norm(lp["ln_attn_post"], o, cfg)
         x = x + o
+    elif desc.mixer == "cross":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        k, v = _cross_kv(lp["attn"], vis, cfg)
+        x = x + _cross_attention(lp["attn"], h, k, v, cfg)
+        cache = {"k": k, "v": v}
+    elif desc.mixer == "mamba":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        o, st = mamba_block(lp["mamba"], h, chunk=cfg.ssm_chunk,
+                            return_state=True, **_mamba_kw(cfg))
+        x = x + o
+        cache = dict(zip(MAMBA_CACHE, st))
     x, _ = _apply_ffn(lp, x, desc, cfg)
     return x, cache
 
@@ -297,6 +363,13 @@ def _apply_ffn(lp, x, desc, cfg):
              else gated_mlp(lp["mlp"], h, cfg.act))
         if cfg.post_norm:
             h = _apply_norm(lp["ln_mlp_post"], h, cfg)
+        x = x + h
+    elif desc.ffn == "moe":
+        h = _apply_norm(lp["ln_mlp"], x, cfg)
+        h, aux = moe_ffn(lp["moe"], h, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act,
+                         router_bias=lp.get("router_bias"),
+                         groups=cfg.moe_groups)
         x = x + h
     return x, aux
 
@@ -335,30 +408,46 @@ def apply_layer_decode(lp: Dict[str, Any], x: torch.Tensor, desc: LayerDesc,
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Single-token decode.  x: (B, 1, D); cache_len: int = #tokens so far.
 
-    The new key and value are written into ``cache``'s tensors in place (the
-    reference's ``dynamic_update_slice`` returns new arrays); the returned
-    cache holds the same tensors."""
-    _check_ported(desc, cfg)
+    What the step adds to the cache is written into ``cache``'s tensors in
+    place (the reference returns new arrays): the new key and value, MLA's
+    latent entry, Mamba's state and conv tails; a cross-attention cache is
+    only read.  The returned cache holds the same tensors."""
     B = x.shape[0]
     cache_len = int(cache_len)
     if desc.mixer == "attn":
         h = _apply_norm(lp["ln_attn"], x, cfg)
-        q, k, v = _qkv(lp["attn"], h, cfg, _positions(cache_len, 1, x.device))
-        kc, vc = cache["k"], cache["v"]
-        S = kc.shape[1]
-        idx = cache_len % S if desc.window > 0 else cache_len
-        if not 0 <= idx < S:
-            raise ValueError(f"apply_layer_decode: position {idx} is outside "
-                             f"the cache's {S} slots")
-        kc[:, idx] = k[:, 0]
-        vc[:, idx] = v[:, 0]
-        n_valid = min(cache_len + 1, S)
-        o = decode_attention(q, kc, vc, cache_len=n_valid,
-                             attn_softcap=cfg.attn_softcap)
-        o = o.reshape(B, 1, -1) @ lp["attn"]["wo"]
-        cache = {"k": kc, "v": vc}
+        if cfg.use_mla:
+            o, _ = mla_decode(h, _mla(lp), cache["lat"], cache_len=cache_len,
+                              **_mla_kw(cfg))
+        else:
+            q, k, v = _qkv(lp["attn"], h, cfg,
+                           _positions(cache_len, 1, x.device))
+            kc, vc = cache["k"], cache["v"]
+            S = kc.shape[1]
+            idx = cache_len % S if desc.window > 0 else cache_len
+            if not 0 <= idx < S:
+                raise ValueError(f"apply_layer_decode: position {idx} is "
+                                 f"outside the cache's {S} slots")
+            kc[:, idx] = k[:, 0]
+            vc[:, idx] = v[:, 0]
+            n_valid = min(cache_len + 1, S)
+            o = decode_attention(q, kc, vc, cache_len=n_valid,
+                                 attn_softcap=cfg.attn_softcap)
+            o = o.reshape(B, 1, -1) @ lp["attn"]["wo"]
         if cfg.post_norm:
             o = _apply_norm(lp["ln_attn_post"], o, cfg)
+        x = x + o
+    elif desc.mixer == "cross":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        o = decode_attention(_cross_q(lp["attn"], h, cfg), cache["k"],
+                             cache["v"], cache_len=cache["k"].shape[1])
+        x = x + _cross_out(lp["attn"], o)
+    elif desc.mixer == "mamba":
+        h = _apply_norm(lp["ln_attn"], x, cfg)
+        st = MambaState(*(cache[name] for name in MAMBA_CACHE))
+        o, st = mamba_decode(lp["mamba"], h, st, **_mamba_kw(cfg))
+        for name, t in zip(MAMBA_CACHE, st):
+            cache[name].copy_(t)
         x = x + o
     x, _ = _apply_ffn(lp, x, desc, cfg)
     return x, cache

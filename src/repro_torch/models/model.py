@@ -27,7 +27,9 @@ backward (``torch.utils.checkpoint``, the counterpart of the reference's
 ``jax.checkpoint``); it changes no value and no gradient bit.  Caches keep the
 reference's tree — one dict a group, stacked leaves ``(count, B, S, Hkv,
 D)`` — so they compare leaf by leaf; ``decode_step`` writes into them in
-place.  Dense and audio families only for now (:mod:`.blocks`).
+place.  Every family runs (:mod:`.blocks`); a ``vlm`` batch carries
+``vision_embeds`` ``(B, vision_seq, vision_dim)``, projected once by
+``vision_proj`` for the cross-attention layers.
 """
 from __future__ import annotations
 
@@ -147,10 +149,16 @@ class Model:
         w = params["embed"].T if cfg.tie_embeddings else params["head"]
         return softcap(x @ w, cfg.logit_softcap)
 
-    def _period(self, g: BlockGroup, lp, x, aux):
+    def _vision(self, params, batch, x):
+        """The vision embeddings projected to d_model (``vlm`` only)."""
+        if self.cfg.family != "vlm":
+            return None
+        return batch["vision_embeds"].to(x.dtype) @ params["vision_proj"]
+
+    def _period(self, g: BlockGroup, lp, x, aux, vis):
         """One repetition of a group's period of layers."""
         for i, desc in enumerate(g.descs):
-            x, a = apply_layer(lp[f"l{i}"], x, desc, self.cfg)
+            x, a = apply_layer(lp[f"l{i}"], x, desc, self.cfg, vis=vis)
             aux = aux + a
         return x, aux
 
@@ -158,14 +166,16 @@ class Model:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence logits.  Returns (logits, aux_loss)."""
         x = self._embed(params, batch)
+        vis = self._vision(params, batch, x)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, g in enumerate(self.groups):
             for lp in _layers(params[f"blocks{gi}"], g.count):
                 if remat:
                     x, aux_total = checkpoint(self._period, g, lp, x,
-                                              aux_total, use_reentrant=False)
+                                              aux_total, vis,
+                                              use_reentrant=False)
                 else:
-                    x, aux_total = self._period(g, lp, x, aux_total)
+                    x, aux_total = self._period(g, lp, x, aux_total, vis)
         return self._head(params, x), aux_total
 
     def loss_fn(self, params, batch, *, remat: bool = False) -> torch.Tensor:
@@ -183,6 +193,7 @@ class Model:
         """Returns (last-position logits, caches: one stacked tree/group)."""
         cfg = self.cfg
         x = self._embed(params, batch)
+        vis = self._vision(params, batch, x)
         caches: List[Any] = []
         for gi, g in enumerate(self.groups):
             per_layer = []
@@ -190,7 +201,7 @@ class Model:
                 cs = {}
                 for i, desc in enumerate(g.descs):
                     x, cs[f"l{i}"] = apply_layer_prefill(lp[f"l{i}"], x, desc,
-                                                         cfg)
+                                                         cfg, vis=vis)
                 per_layer.append(cs)
             caches.append(tree_util.map(lambda *ts: torch.stack(ts),
                                         *per_layer))

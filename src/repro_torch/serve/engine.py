@@ -2,9 +2,10 @@
 
 The counterpart of the reference's ``repro/serve/engine.py``: the engine
 allocates decode buffers of length prompt + max_new, seeds them from the
-prefill caches (full-attention caches grow; ring caches are fixed-size), and
-steps ``Model.decode_step``, which writes each new key and value into the
-buffers in place.  Prefill's attention goes through the hand-written flash
+prefill caches (full-attention and MLA latent caches grow; ring, Mamba and
+cross-attention caches are fixed-size), and steps ``Model.decode_step``,
+which writes each step's cache entries into the buffers in place.  A
+``vlm`` batch's ``vision_embeds`` go to the prefill with the tokens.  Prefill's attention goes through the hand-written flash
 kernel on the card (:func:`repro_torch.models.attention.chunked_attention`).
 """
 from __future__ import annotations
@@ -23,9 +24,9 @@ from ..models.model import Model, build_model
 
 
 def grow_caches(model: Model, caches: List[Any], extra: int) -> List[Any]:
-    """Pad full-attention caches along the sequence axis by ``extra``
-    decode slots (stacked leaves: (count, B, S, ...)); ring caches keep
-    their size."""
+    """Pad full-attention and MLA latent caches along the sequence axis by
+    ``extra`` decode slots (stacked leaves: (count, B, S, ...)); ring,
+    Mamba and cross-attention caches keep their size."""
     out = []
     for gi, g in enumerate(model.groups):
         cs, new = caches[gi], {}
@@ -84,8 +85,9 @@ class Engine:
 
     def generate(self, batch: Dict[str, Any], max_new: int
                  ) -> Tuple[np.ndarray, ServeStats]:
-        """``batch["tokens"]`` ``(B, T)`` (NumPy or tensor) -> generated
-        tokens ``(B, max_new)`` as NumPy int32, and the timings."""
+        """``batch["tokens"]`` ``(B, T)`` (NumPy or tensor; for a ``vlm``
+        config also ``batch["vision_embeds"]``) -> generated tokens ``(B,
+        max_new)`` as NumPy int32, and the timings."""
         batch = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                     else v).to(self.device)
                  for k, v in batch.items()}

@@ -1,7 +1,8 @@
 """The port's model layers vs the JAX reference: norms, RoPE, softcap,
-activations, the feed-forward blocks, and one layer of every dense and audio
-configuration — full sequence (``apply_layer``), prefill with its cache
-(``apply_layer_prefill``) and decode steps (``apply_layer_decode``).
+activations, the feed-forward blocks, and one layer of every distinct kind
+in every registered configuration (GQA and MLA attention, cross-attention,
+Mamba-2; MLP and MoE) — full sequence (``apply_layer``), prefill with its
+cache (``apply_layer_prefill``) and decode steps (``apply_layer_decode``).
 
 Reduced configurations at f32, the reference's seeded parameters carried
 across with ``params_from_jax``; inputs from NumPy.  Tolerances: ``1e-6`` for
@@ -9,6 +10,8 @@ the elementwise layers (one f32 rounding or a transcendental's ulp apart);
 ``1e-5`` for the FFN and a whole layer (f32 products of width 64-128 summed
 in another order).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +26,7 @@ from repro_torch import tree as tree_util
 from repro_torch.configs import get_config
 from repro_torch.kernels import ref as kref
 from repro_torch.models import blocks, build_model, common, ffn
-from torch_parity import CPU, FORWARD_ARCHS, reduced_pair
+from torch_parity import FORWARD_ARCHS, reduced_pair
 
 
 def _t(a):
@@ -184,60 +187,111 @@ def test_mlp_equals_reference():
 
 # ------------------------------------------------------------ one layer
 
+def _kinds(arch):
+    """(group, index in the period) of the first layer of each distinct
+    descriptor of ``arch``, in model order."""
+    out, seen = [], set()
+    for gi, g in enumerate(build_model(get_config(arch).reduced()).groups):
+        for i, d in enumerate(g.descs):
+            if d not in seen:
+                seen.add(d)
+                out.append((gi, i))
+    return out
+
+
 LAYER_CASES = [(a, li) for a in FORWARD_ARCHS
-               for li in range(2 if a == "gemma2-27b" else 1)]
+               for li in range(len(_kinds(a)))]
 T = 40          # gemma2's reduced window is 32: its ring wraps
+
+_pair = functools.lru_cache(maxsize=None)(reduced_pair)
 
 
 def _layer_setup(arch, li):
-    jcfg, jmodel, jparams, cfg, model, params = reduced_pair(arch)
-    jlp = jax.tree.map(lambda a: a[0], jparams["blocks0"])[f"l{li}"]
-    lp = tree_util.map(lambda t: t[0], params["blocks0"])[f"l{li}"]
-    jdesc, desc = jmodel.groups[0].descs[li], model.groups[0].descs[li]
+    jcfg, jmodel, jparams, cfg, model, params = _pair(arch)
+    gi, i = _kinds(arch)[li]
+    jlp = jax.tree.map(lambda a: a[0], jparams[f"blocks{gi}"])[f"l{i}"]
+    lp = tree_util.map(lambda t: t[0], params[f"blocks{gi}"])[f"l{i}"]
+    jdesc, desc = jmodel.groups[gi].descs[i], model.groups[gi].descs[i]
     assert jdesc.__dict__ == desc.__dict__
     x = RNG.standard_normal((2, T, cfg.d_model)).astype(np.float32)
-    return jcfg, jlp, jdesc, cfg, lp, desc, x
+    # a cross-attention layer's projected vision embeddings
+    vis = (RNG.standard_normal((2, cfg.vision_seq, cfg.d_model))
+           .astype(np.float32) if desc.mixer == "cross" else None)
+    return jcfg, jlp, jdesc, cfg, lp, desc, x, vis
+
+
+def _vis(vis, jax_side):
+    if vis is None:
+        return None
+    return jnp.asarray(vis) if jax_side else _t(vis)
+
+
+# the decode cache of each mixer
+CACHE_KEYS = {"attn": ["k", "v"], "mla": ["lat"], "cross": ["k", "v"],
+              "mamba": ["cb", "cc", "cx", "ssm"]}
+
+
+def _cache_kind(desc, cfg):
+    return "mla" if desc.mixer == "attn" and cfg.use_mla else desc.mixer
 
 
 @pytest.mark.parametrize("arch,li", LAYER_CASES)
 def test_apply_layer_equals_reference(arch, li):
-    jcfg, jlp, jdesc, cfg, lp, desc, x = _layer_setup(arch, li)
-    want, jaux = jblocks.apply_layer(jlp, jnp.asarray(x), jdesc, jcfg)
-    got, aux = blocks.apply_layer(lp, _t(x), desc, cfg)
+    jcfg, jlp, jdesc, cfg, lp, desc, x, vis = _layer_setup(arch, li)
+    want, jaux = jblocks.apply_layer(jlp, jnp.asarray(x), jdesc, jcfg,
+                                     vis=_vis(vis, True))
+    got, aux = blocks.apply_layer(lp, _t(x), desc, cfg, vis=_vis(vis, False))
     _close(got, want, 1e-5)
-    assert float(aux) == float(jaux) == 0.0
+    if desc.ffn == "moe":        # the Switch aux loss: positive, equal
+        assert float(jaux) > 0
+        assert abs(float(aux) - float(jaux)) <= 1e-5 * float(jaux)
+    else:
+        assert float(aux) == float(jaux) == 0.0
 
 
 @pytest.mark.parametrize("arch,li", LAYER_CASES)
 def test_apply_layer_prefill_equals_reference(arch, li):
-    jcfg, jlp, jdesc, cfg, lp, desc, x = _layer_setup(arch, li)
+    jcfg, jlp, jdesc, cfg, lp, desc, x, vis = _layer_setup(arch, li)
     want, jcache = jblocks.apply_layer_prefill(jlp, jnp.asarray(x), jdesc,
-                                               jcfg)
-    got, cache = blocks.apply_layer_prefill(lp, _t(x), desc, cfg)
+                                               jcfg, vis=_vis(vis, True))
+    got, cache = blocks.apply_layer_prefill(lp, _t(x), desc, cfg,
+                                            vis=_vis(vis, False))
     _close(got, want, 1e-5)
-    assert sorted(cache) == sorted(jcache) == ["k", "v"]
-    for name in ("k", "v"):
+    assert sorted(cache) == sorted(jcache) == CACHE_KEYS[_cache_kind(desc,
+                                                                     cfg)]
+    for name in cache:
         assert tuple(cache[name].shape) == jcache[name].shape
         _close(cache[name], jcache[name], 1e-5)
     # the full-sequence layer computes the same output
-    _close(blocks.apply_layer(lp, _t(x), desc, cfg)[0], got, 1e-6)
+    _close(blocks.apply_layer(lp, _t(x), desc, cfg, vis=_vis(vis, False))[0],
+           got, 1e-6)
 
 
 DECODE_LAYER_CASES = [c for c in LAYER_CASES if c[0] != "hubert-xlarge"]
+
+
+def _grow(cache, jcache, kind, window):
+    """Two decode slots more on a full-length KV or MLA latent cache (axis
+    1); ring, cross-attention and Mamba caches keep their size."""
+    if kind not in ("attn", "mla") or window:
+        return cache, jcache
+    jcache = {k: jnp.pad(v, [(0, 0), (0, 2)] + [(0, 0)] * (v.ndim - 2))
+              for k, v in jcache.items()}
+    cache = {k: torch.cat([v, v.new_zeros((v.shape[0], 2, *v.shape[2:]))],
+                          dim=1) for k, v in cache.items()}
+    return cache, jcache
 
 
 @pytest.mark.parametrize("arch,li", DECODE_LAYER_CASES)
 def test_apply_layer_decode_equals_reference(arch, li):
     """Two decode steps after a prefill of ``T`` tokens: outputs and the
     cache written in place equal the reference's new arrays."""
-    jcfg, jlp, jdesc, cfg, lp, desc, x = _layer_setup(arch, li)
-    _, jcache = jblocks.apply_layer_prefill(jlp, jnp.asarray(x), jdesc, jcfg)
-    _, cache = blocks.apply_layer_prefill(lp, _t(x), desc, cfg)
-    if desc.window == 0:         # grow the full cache by two decode slots
-        jcache = {k: jnp.pad(v, ((0, 0), (0, 2), (0, 0), (0, 0)))
-                  for k, v in jcache.items()}
-        cache = {k: torch.cat([v, v.new_zeros((2, 2, *v.shape[2:]))], dim=1)
-                 for k, v in cache.items()}
+    jcfg, jlp, jdesc, cfg, lp, desc, x, vis = _layer_setup(arch, li)
+    _, jcache = jblocks.apply_layer_prefill(jlp, jnp.asarray(x), jdesc, jcfg,
+                                            vis=_vis(vis, True))
+    _, cache = blocks.apply_layer_prefill(lp, _t(x), desc, cfg,
+                                          vis=_vis(vis, False))
+    cache, jcache = _grow(cache, jcache, _cache_kind(desc, cfg), desc.window)
     for step in range(2):
         xt = RNG.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
         want, jcache = jblocks.apply_layer_decode(
@@ -248,29 +302,13 @@ def test_apply_layer_decode_equals_reference(arch, li):
                                                T + step)
         assert {k: v.data_ptr() for k, v in cache.items()} == before
         _close(got, want, 1e-5)
-        for name in ("k", "v"):
+        assert sorted(cache) == sorted(jcache)
+        for name in cache:
             _close(cache[name], jcache[name], 1e-5)
 
 
 def test_decode_outside_the_cache_raises():
-    jcfg, jlp, jdesc, cfg, lp, desc, x = _layer_setup("llama3.2-1b", 0)
+    jcfg, jlp, jdesc, cfg, lp, desc, x, vis = _layer_setup("llama3.2-1b", 0)
     _, cache = blocks.apply_layer_prefill(lp, _t(x), desc, cfg)
     with pytest.raises(ValueError, match="outside the cache"):
         blocks.apply_layer_decode(lp, _t(x[:, :1]), desc, cfg, cache, T)
-
-
-@pytest.mark.parametrize("arch,what", [
-    ("mamba2-1.3b", "Mamba"), ("mixtral-8x22b", "MoE"),
-    ("llama-3.2-vision-11b", "cross-attention"), ("deepseek-v3-671b", "MLA"),
-    ("jamba-v0.1-52b", "Mamba")])
-def test_unported_layers_raise(arch, what):
-    cfg = get_config(arch).reduced().with_(dtype="float32")
-    model = build_model(cfg)
-    params = model.init_params(torch.Generator().manual_seed(0), CPU)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    if cfg.family == "vlm":
-        batch["vision_embeds"] = torch.zeros((1, cfg.vision_seq,
-                                              cfg.vision_dim))
-    with pytest.raises(NotImplementedError, match=what) as e:
-        model.prefill(params, batch)
-    assert "ROADMAP 1.11" in str(e.value)

@@ -5,9 +5,11 @@
   ``chunked_attention`` for causal, windowed, GQA and query-offset calls,
   within ``1e-5`` of each gradient's largest magnitude;
 * ``Model.loss_fn``'s value and gradient against ``jax.value_and_grad`` of
-  the reference's ``loss_fn`` on reduced configurations (2 layers, vocab
-  128) at f32: the loss within ``1e-5`` relative, each gradient leaf within
-  ``1e-4`` of that leaf's largest magnitude;
+  the reference's ``loss_fn`` on reduced configurations (2 layers, or one
+  period of jamba's 8 and llama-vision's 5; vocab 128) at f32, the MoE aux
+  loss and the seeded gate, router bias and SSM leaves included: the loss
+  within ``1e-5`` relative, each gradient leaf within ``1e-4`` of that
+  leaf's largest magnitude;
 * ``remat=True`` changes no gradient bit; ``chunked_attention`` builds a
   graph only where a gradient is wanted.
 
@@ -27,19 +29,29 @@ from repro_torch import tree as tree_util
 from repro_torch.kernels import flash_attention as fm
 from repro_torch.models import attention
 from repro_torch.train.train_step import value_and_grad
-from torch_parity import client_batches, leaves_close, reduced_pair
+from repro_torch.configs import get_config
+from torch_parity import (client_batches, kernel_attention_layers,
+                          leaves_close, plain_attention_layers, reduced_pair,
+                          vision_embeds)
 from torch_parity import reference_dist  # noqa: F401  (a fixture)
 
-ARCHS = ("llama3.2-1b", "stablelm-1.6b", "qwen3-32b", "gemma2-27b")
+ARCHS = ("llama3.2-1b", "stablelm-1.6b", "qwen3-32b", "gemma2-27b",
+         "mixtral-8x22b", "deepseek-v3-671b", "mamba2-1.3b",
+         "jamba-v0.1-52b", "llama-3.2-vision-11b")
 B, T, STEPS, LR = 4, 16, 2, 0.15
 
 
 @functools.lru_cache(maxsize=None)
 def _setup(arch):
     """Models, parameters and the example's client data: two minibatches of
-    a Dirichlet client mix."""
-    return (reduced_pair(arch, n_layers=2, vocab=128),
-            client_batches(128, T, B, STEPS))
+    a Dirichlet client mix (and, for a vlm, seeded vision embeddings)."""
+    layers = max(2, get_config(arch).block_period)
+    batches = client_batches(128, T, B, STEPS)
+    pair = reduced_pair(arch, n_layers=layers, vocab=128)
+    if pair[3].family == "vlm":
+        batches["vision_embeds"] = np.stack(
+            [vision_embeds(pair[3], B, seed=s) for s in range(STEPS)])
+    return pair, batches
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -55,11 +67,10 @@ def test_loss_fn_grad_equals_reference(arch, reference_dist):
                                   for k, v in batch.items()})
     assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
     leaves_close(grads, jgrads, 1e-4, arch)
-    # one backward a layer through FlashAttentionFn, or none on the softcap
-    # route (plain forwards, differentiated by autograd)
-    plain = cfg.attn_softcap > 0
-    assert fm.backward_plain_calls == (0 if plain else cfg.n_layers)
-    assert attention.attention_plain_calls == (cfg.n_layers if plain else 0)
+    # one backward an attention layer through FlashAttentionFn, none on the
+    # softcap and MLA routes (plain forwards, differentiated by autograd)
+    assert fm.backward_plain_calls == kernel_attention_layers(model)
+    assert attention.attention_plain_calls == plain_attention_layers(model)
     assert fm.launches == 0                          # the CPU: no kernel
 
 

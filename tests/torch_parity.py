@@ -107,15 +107,68 @@ def reference_dist(monkeypatch):
     yield sharding
 
 
-# the dense and audio configurations the port's forwards cover
+# every registered configuration: dense, audio, and the MoE, MLA, Mamba-2,
+# hybrid and cross-attention families
 FORWARD_ARCHS = ("llama3.2-1b", "qwen3-32b", "stablelm-1.6b", "gemma2-27b",
-                 "hubert-xlarge")
+                 "hubert-xlarge", "mixtral-8x22b", "deepseek-v3-671b",
+                 "mamba2-1.3b", "jamba-v0.1-52b", "llama-3.2-vision-11b")
+
+# leaves whose init is a constant (zeros or ones) that hides a term of the
+# forward — a zero cross-attention gate contributes nothing, a zero router
+# bias and the default decay / dt bias / skip exercise one point each —
+# and the seeded spread ``reduced_pair`` draws them from instead
+SEEDED_LEAVES = {"gate_attn": (0.6, 0.2), "router_bias": (0.0, 0.05),
+                 "a_log": (0.0, 0.5), "dt_bias": (0.0, 0.5),
+                 "d_skip": (1.0, 0.3)}
+
+
+def seed_constant_leaves(jparams, seed):
+    """The reference's parameter tree with every :data:`SEEDED_LEAVES` leaf
+    redrawn as ``mean + std · N(0, 1)`` from NumPy (the same values for both
+    packages once carried across)."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed + 7919)
+
+    def one(path, a):
+        name = getattr(path[-1], "key", None)
+        if name not in SEEDED_LEAVES:
+            return a
+        mean, std = SEEDED_LEAVES[name]
+        return jnp.asarray(mean + std * rng.standard_normal(a.shape), a.dtype)
+    return jax.tree_util.tree_map_with_path(one, jparams)
+
+
+def plain_attention_layers(model):
+    """Attention calls of one forward outside the kernel's function (MLA's
+    ``Dv != D``, gemma2's softcap): ``attention_plain_calls`` after it."""
+    cfg = model.cfg
+    if not (cfg.use_mla or cfg.attn_softcap > 0):
+        return 0
+    return sum(g.count * sum(d.mixer == "attn" for d in g.descs)
+               for g in model.groups)
+
+
+def kernel_attention_layers(model):
+    """Attention calls of one forward through the flash wrapper: self- and
+    cross-attention layers but those of :func:`plain_attention_layers`."""
+    n = sum(g.count * sum(d.mixer in ("attn", "cross") for d in g.descs)
+            for g in model.groups)
+    return n - plain_attention_layers(model)
+
+
+def vision_embeds(cfg, batch, seed=0):
+    """Seeded standard-normal vision embeddings ``(batch, vision_seq,
+    vision_dim)`` for a ``vlm`` configuration (f32 NumPy)."""
+    rng = np.random.default_rng(seed + 104729)
+    return rng.standard_normal((batch, cfg.vision_seq, cfg.vision_dim)
+                               ).astype(np.float32)
 
 
 def reduced_pair(arch, seed=0, **overrides):
     """The reduced configuration of ``arch`` at f32 in both packages, its
-    two models, and the reference's seeded parameters cast to f32 with
-    the port's copy of them on the CPU:
+    two models, and the reference's seeded parameters cast to f32 (the
+    :data:`SEEDED_LEAVES` redrawn) with the port's copy of them on the CPU:
     ``(jcfg, jmodel, jparams, cfg, model, params)``."""
     import jax
     import jax.numpy as jnp
@@ -129,6 +182,7 @@ def reduced_pair(arch, seed=0, **overrides):
     jmodel = jbuild_model(jcfg)
     jparams = jax.tree.map(lambda x: x.astype(jnp.float32),
                            jmodel.init_params(jax.random.PRNGKey(seed)))
+    jparams = seed_constant_leaves(jparams, seed)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), CPU)
     return jcfg, jmodel, jparams, cfg, build_model(cfg), params
 
