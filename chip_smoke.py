@@ -59,15 +59,27 @@ repro_torch.launch.train`` for llama3.2-1b at full width, 4 × 1024 tokens a
 step, 6 AdamW steps, one step more profiled, then a checkpoint and resume at
 smoke size (``train``); and the trainer for the whole mamba2-1.3b, 6 steps,
 with its first step's gradient norms and a profiled step
-(``train_families``). It imports ``repro_torch`` only.
+(``train_families``). Then the launch layer (``launch``): (b) the dry-run's
+predictions against the card at three shapes the earlier phases run
+(llama3.2-1b and mamba2-1.3b training at 4 × 1024 tokens, llama3.2-1b's
+prefill of 4 × 1024): ``dryrun.run_shape``, launching no kernel, then one
+real step, predicted / measured peak memory within 0.8-1.25, the roofline
+step beside the measured one, the counted FLOPs beside ``6·N·D``; (c)
+``python -m repro_torch.launch.elastic --arch llama3.2-1b`` in a child
+process: 10 steps, the full-width state (12.4 GB) saved, restored bit-equal
+onto a fresh mesh, 5 more steps, every loss finite; and last, when nothing
+else is timed, (a) the whole dry-run — ``python -m repro_torch.launch.dryrun
+--all`` in a child process, tracing every supported arch × shape cell of the
+ten configs on fake ``cuda:0`` tensors — every cell ``ok``. It imports
+``repro_torch`` only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
 ``main_path``, ``dense_path``, one ``scenario`` per registered scenario,
 ``scenarios``, ``fl_kernel_checks``, ``fl_round_setup``,
 one ``fl_round_job`` per job and round, ``fl_round``,
 ``flash_kernel_checks``, ``serve``, ``serve_families``, ``train_checks``,
-``train``, ``train_families``, ``total_seconds``), the card's name and power
-limit, the
+``train``, ``train_families``, ``launch_dryrun_cells``, ``launch``,
+``total_seconds``), the card's name and power limit, the
 ``kernels`` summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises;
 without a CUDA device the script exits non-zero before printing a result.
@@ -84,6 +96,7 @@ costs the same.)
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -113,7 +126,7 @@ from repro_torch.accel.kernels import match_segment as segment_mod
 from repro_torch.accel.kernels.stage import stage_for
 from repro_torch.accel.state import MatchState
 from repro_torch.ckpt import checkpoint as ckpt_mod
-from repro_torch.configs import get_config
+from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.core import SCHEDULERS, Job, JobRequest, VennScheduler
 from repro_torch.data import SyntheticLM, dirichlet_client_mixes
 from repro_torch.device import default_device
@@ -128,7 +141,11 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import ops as fl_ops
 from repro_torch.kernels import quantize as quant_mod
 from repro_torch.kernels import ref as fl_ref
+from repro_torch.kernels.flash_attention import valid_pairs
+from repro_torch.launch import dryrun as dryrun_mod
 from repro_torch.launch import train as train_mod
+from repro_torch.launch.mesh import HBM_BW as PEAK_BYTES_PER_S
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as PEAK_BF16_FLOPS
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import build_model
 from repro_torch.serve import Engine, grow_caches
@@ -138,16 +155,16 @@ from repro_torch.sim.devices import (REQ_HIGHPERF, REQUIREMENT_CLASSES,
                                      DeviceGenerator)
 from repro_torch.sim.simulator import Simulator
 from repro_torch.train.optimizer import AdamW
-from repro_torch.train.train_step import value_and_grad
+from repro_torch.train.train_step import (make_prefill_step,
+                                          make_train_step, value_and_grad)
 
-# Published peaks of one H100 SXM: HBM bandwidth; and for the scalar f64 / i32
-# compares of segmented_rank the f64 rate outside the tensor cores, 34 TFLOP/s
-# (half the 67 TFLOP/s of f32), which counts a fused multiply-add as two: a
-# compare is one instruction, so 17e12 of them a second.
-PEAK_BYTES_PER_S = 3.35e12
+# Published peaks of one H100 SXM — HBM bandwidth and the dense bf16
+# tensor-core rate — from the package, which the dry-run's roofline divides
+# by too; and for the scalar f64 / i32 compares of segmented_rank the f64
+# rate outside the tensor cores, 34 TFLOP/s (half the 67 TFLOP/s of f32),
+# which counts a fused multiply-add as two: a compare is one instruction, so
+# 17e12 of them a second.
 PEAK_SCALAR_OPS_PER_S = 17e12
-# and the dense bf16 tensor-core rate, the card's peak for bf16 attention
-PEAK_BF16_FLOPS = 989e12
 
 DEV = default_device()
 T_START = time.perf_counter()
@@ -1527,14 +1544,6 @@ FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 
 
-def _valid_pairs(T, S, causal, window, q_offset):
-    """(query, key) pairs the mask lets through, per batch row and head."""
-    qpos = q_offset + np.arange(T)
-    last = np.minimum(S - 1, qpos) if causal else np.full(T, S - 1)
-    first = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(T)
-    return int(np.clip(last - first + 1, 0, None).sum())
-
-
 def check_flash(B, T, S, H, Hkv, D, causal, window, q_offset, dtype, seed,
                 blocks=None, timed=False):
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -1562,7 +1571,7 @@ def check_flash(B, T, S, H, Hkv, D, causal, window, q_offset, dtype, seed,
            "route": flash_mod.flash_route(dtype, D), "max_abs_err": err,
            "tolerance": tol}
     if timed:
-        pairs = B * H * _valid_pairs(T, S, causal, window, q_offset)
+        pairs = B * H * valid_pairs(T, S, causal, window, q_offset)
         flops = 4 * D * pairs
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -1589,17 +1598,24 @@ def check_flash(B, T, S, H, Hkv, D, causal, window, q_offset, dtype, seed,
         fma()
         torch.cuda.synchronize()
         fma_err = float((out_fma.float() - want.float()).abs().max())
+        # the kernel through the wrapper, as every path calls it; and the
+        # op's CUDA implementation (its checks and routed launch) called
+        # directly, without the op's dispatch (``_wrapper_host_us``)
         ms = time_interleaved({
             "kernel": lambda: flash_mod.flash_attention(
                 q, k, v, causal=causal, window=window, q_offset=q_offset),
+            "direct": lambda: flash_mod._flash_attention_cuda(
+                q, k, v, causal, window, q_offset),
             "fma": fma,
             "plain": lambda: flash_mod.flash_attention_plain(
                 q, k, v, causal=causal, window=window, q_offset=q_offset),
             "library": sdpa},
-            reps={"kernel": 20, "fma": 20, "plain": 5, "library": 20})
+            reps={"kernel": 20, "direct": 20, "fma": 20, "plain": 5,
+                  "library": 20})
         bound = max(t_ops, t_bytes)
         row.update(
-            ms=ms["kernel"], fma_ms=ms["fma"], plain_ms=ms["plain"],
+            ms=ms["kernel"], direct_ms=ms["direct"], fma_ms=ms["fma"],
+            plain_ms=ms["plain"],
             library_ms=ms["library"], timing_runs=ms["runs"],
             library="scaled_dot_product_attention(is_causal, enable_gqa)",
             library_max_abs_err=lib_err, fma_max_abs_err=fma_err,
@@ -1637,6 +1653,30 @@ def _ptxas(source: str) -> list:
     return []
 
 
+def _wrapper_host_us(calls=300, rounds=3):
+    """Host µs a call of the flash wrapper, which dispatches through its
+    ``torch.library`` op, and of the same checks and launch called directly
+    (the op's CUDA implementation), at a shape whose kernel takes a few µs,
+    in turns: what the op's dispatch costs a launch.  Comparison launches."""
+    g = torch.Generator(device=DEV).manual_seed(7)
+    q = torch.randn((1, 64, 4, 64), generator=g, device=DEV).bfloat16()
+    k = torch.randn((1, 64, 2, 64), generator=g, device=DEV).bfloat16()
+    v = torch.randn((1, 64, 2, 64), generator=g, device=DEV).bfloat16()
+    fns = {"wrapper": lambda: flash_mod.flash_attention(q, k, v, causal=True),
+           "direct": lambda: flash_mod._flash_attention_cuda(q, k, v, True,
+                                                             0, 0)}
+    runs = {n: [] for n in fns}
+    for _ in range(rounds):
+        for n in list(fns) + list(fns)[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[n]()
+            runs[n].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    return {n: statistics.median(r) for n, r in runs.items()} | {"runs": runs}
+
+
 def phase_flash_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
@@ -1667,11 +1707,13 @@ def phase_flash_kernels():
     emit("flash_kernel_checks", {
         "rows": rows, "serve_shape": serve, "wgmma_build": wgmma_build,
         "bf16_max_abs_err_by_shape": bf16_err,
+        "wrapper_host_us_per_call": _wrapper_host_us(),
         "tolerance": "2e-6 f32, 2e-2 bf16 (max abs) against the plain "
                      "version; f32 oracles without TF32",
-        "timing": "serve shape: kernel, FMA kernel, plain, SDPA in turns "
-                  "(A B C D D C B A, 3 rounds), each a batch of back-to-back "
-                  "launches by CUDA events; the median"})
+        "timing": "serve shape: kernel (the wrapper, through the op), "
+                  "direct (the op's CUDA implementation alone), FMA kernel, "
+                  "plain, SDPA in turns (A B C D E E D C B A, 3 rounds), each a batch of "
+                  "back-to-back launches by CUDA events; the median"})
     return rows, serve
 
 
@@ -2136,7 +2178,7 @@ def check_flash_grad(dtype, seed, timed=False):
         # forward 4·D a valid (query, key) pair and head, the backward's
         # four products 8·D: 12·D; bytes: q, k, v, do read, dq, dk, dv and
         # the output written, once each
-        pairs = B * H * _valid_pairs(T, T, True, 0, 0)
+        pairs = B * H * valid_pairs(T, T, True, 0, 0)
         flops = 12 * D * pairs
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
             * q.element_size()
@@ -2295,7 +2337,7 @@ def _train_bound(model, tokens, T, steps_b):
     cfg = model.cfg
     n = model.n_params()
     matmul = 6 * n * tokens
-    pairs = steps_b * cfg.n_heads * _valid_pairs(T, T, True, 0, 0)
+    pairs = steps_b * cfg.n_heads * valid_pairs(T, T, True, 0, 0)
     attn = 12 * cfg.head_dim * pairs * cfg.n_layers
     adam_bytes = 22 * n
     parts = {"matmul_ms": matmul / PEAK_BF16_FLOPS * 1e3,
@@ -2503,6 +2545,160 @@ def phase_train_families(smi):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# 11. launch: the dry-run, its predictions against the card, elastic restart
+# --------------------------------------------------------------------------- #
+
+def _dryrun_sweep():
+    """``python -m repro_torch.launch.dryrun --all`` in a child process
+    (fake ``cuda:0`` tensors; it launches nothing), after every timed phase
+    of the card: every supported arch × shape cell ``ok``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        out = os.path.join(tmpdir, "dryrun.jsonl")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--out", out], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        assert res.returncode == 0, (res.stdout[-2000:], res.stderr[-3000:])
+        with open(out) as f:
+            recs = [json.loads(line) for line in f]
+    want = [(a, s) for a, s, _, ok in dryrun_mod.iter_cells("host") if ok]
+    assert [(r["arch"], r["shape"]) for r in recs] == want, recs
+    assert all(r["status"] == "ok" for r in recs), recs
+    cells = [{"arch": r["arch"], "shape": r["shape"],
+              "peak_gb": r["memory"]["peak_bytes_per_dev"] / 1e9,
+              "fits_hbm": r["memory"]["fits_hbm"],
+              "bottleneck": r["roofline"]["bottleneck"],
+              "step_ms": r["roofline"]["step_time_s"] * 1e3,
+              "useful_ratio": r["roofline"]["useful_ratio"],
+              "flops": r["full_graph"]["flops_per_dev"],
+              "bytes": r["full_graph"]["bytes_per_dev"],
+              "trace_s": r["trace_s"]} for r in recs]
+    return {"cells": cells, "n_cells": len(recs), "failures": 0,
+            "wall_s": wall, "trace_s_sum": sum(r["trace_s"] for r in recs),
+            "device": recs[0]["device"],
+            "tail": res.stdout.splitlines()[-1]}
+
+
+# (b): cells the earlier phases run — (arch, kind, batch, seq)
+LAUNCH_CELLS = (("llama3.2-1b", "train", TRAIN_B, TRAIN_T),
+                ("mamba2-1.3b", "train", TRAIN_B, TRAIN_T),
+                ("llama3.2-1b", "prefill", SERVE_B, SERVE_PROMPT))
+PEAK_RATIO = (0.8, 1.25)      # predicted / measured peak bytes
+
+
+def _predicted_vs_measured(arch, kind, B, T):
+    """``dryrun.run_shape`` of one cell (as the trainer and the server run
+    it: no remat), then the same step once on ``cuda:0``: peak bytes
+    (``max_memory_allocated`` above what was allocated before its
+    arguments), step time (the second of two calls, the first a warm-up)
+    and the counts."""
+    shape = ShapeConfig(f"{kind}_B{B}_T{T}", T, B, kind)
+    counts = (flash_mod.launches_wgmma, flash_mod.launches_fma)
+    pred = dryrun_mod.run_shape(arch, shape, remat=False, verbose=False)
+    assert (flash_mod.launches_wgmma, flash_mod.launches_fma) == counts, \
+        "the dry-run launched a kernel"
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    gc.collect()           # nothing of an earlier phase is freed mid-step
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(0),
+                               DEV)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=T, seed=0)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(B, seed=0).items()}
+    if kind == "train":
+        step, _ = make_train_step(cfg, remat=False)
+        args = (params, AdamW().init(params), batch)
+    else:
+        step, _ = make_prefill_step(cfg)
+        args = (params, {"tokens": batch["tokens"]})
+    out = step(*args)                                       # warm-up
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    measured = torch.cuda.max_memory_allocated() - base
+    loss_or_logits = out[0].float()
+    assert bool(torch.isfinite(loss_or_logits).all()), (arch, kind)
+    del out, args, params, batch
+    torch.cuda.empty_cache()
+    roof = pred["roofline"]
+    row = {"arch": arch, "kind": kind, "batch": B, "seq": T,
+           "remat": False, "moe_capacity": pred.get("moe_capacity"),
+           "predicted_peak_bytes": pred["memory"]["peak_bytes_per_dev"],
+           "predicted_args_bytes": pred["memory"]["args_bytes_per_dev"],
+           "measured_peak_bytes": measured,
+           "peak_ratio": pred["memory"]["peak_bytes_per_dev"] / measured,
+           "roofline_step_ms": roof["step_time_s"] * 1e3,
+           "roofline_bottleneck": roof["bottleneck"],
+           "roofline_compute_ms": roof["compute_s"] * 1e3,
+           "roofline_memory_ms": roof["memory_s"] * 1e3,
+           "measured_step_ms": step_ms,
+           "counted_flops": roof["flops_per_dev"],
+           "counted_bytes": roof["bytes_per_dev"],
+           "analytic_model_flops": roof["model_flops"],
+           "useful_ratio": roof["useful_ratio"],
+           "outside_blocks": pred["outside_blocks"],
+           "trace_s": pred["trace_s"]}
+    if kind == "train" and arch == "llama3.2-1b":
+        row["hand_bound_ms"] = _train_bound(model, B * T, T, B)[0]
+    lo, hi = PEAK_RATIO
+    assert lo <= row["peak_ratio"] <= hi, row
+    return row
+
+
+def _elastic():
+    """``python -m repro_torch.launch.elastic --arch llama3.2-1b --steps
+    10`` in a child process on ``cuda:0``: B 4 × T 32, the full-width
+    state (12.4 GB) saved, restored bit for bit, trained on."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.elastic", "--arch",
+         "llama3.2-1b", "--steps", "10"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert res.returncode == 0, (res.stdout[-2000:], res.stderr[-3000:])
+    lines = res.stdout.splitlines()
+    summary = json.loads(lines[-1].removeprefix("elastic: "))
+    losses = summary["phase1_losses"] + summary["phase2_losses"]
+    assert summary["restored_bit_equal"] and summary["restored_step"] == 9
+    assert len(losses) == 15 and all(map(math.isfinite, losses)), losses
+    layers = get_config("llama3.2-1b").n_layers
+    # one launch an attention layer a step, in both phases
+    assert summary["flash_launches"] == [10 * layers, 5 * layers], summary
+    return dict(summary, ckpt_gb=summary["ckpt_bytes"] / 1e9, wall_s=wall,
+                log=lines[:-1])
+
+
+def phase_launch(smi):
+    """The launch layer: (b) the dry-run's predictions against the card at
+    three shapes the earlier phases run; (c) the elastic restart at
+    llama3.2-1b's full width; then (a), on an idle card, the whole dry-run
+    over every registered arch × shape cell on the host mesh."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flash_mod.reset_launches()
+    b = [_predicted_vs_measured(*cell) for cell in LAUNCH_CELLS]
+    c = _elastic()
+    a = _dryrun_sweep()
+    print(json.dumps({"launch_dryrun_cells": [
+        [c["arch"], c["shape"], round(c["peak_gb"], 3), c["fits_hbm"],
+         c["bottleneck"], round(c["step_ms"], 3), round(c["useful_ratio"], 4)]
+        for c in a["cells"]]}), flush=True)
+    out = {"gpu": smi, "dryrun": a, "predicted_vs_measured": b,
+           "elastic": c}
+    emit("launch", out)
+    return out
+
+
 def main() -> None:
     smi = phase_env()
     ff, rk, seg = phase_kernels()
@@ -2530,6 +2726,7 @@ def main() -> None:
     train_checks = phase_train_checks()
     train = phase_train()
     phase_train_families(smi)
+    launch = phase_launch(smi)
 
     print(smi, flush=True)
     src = "src/repro_torch/accel/kernels/csrc/"
@@ -2634,6 +2831,7 @@ def main() -> None:
         families_launches=families["launches_wgmma"],
         train_launches=train["launches"]["launches_wgmma"],
         train_backward_plain_calls=train["launches"]["backward_plain_calls"],
+        elastic_launches=sum(launch["elastic"]["flash_launches"]),
         fl_round_launches=fl_launches["flash_attention_wgmma"],
         train_shape_fwd_bwd_ms=fn_grad["fwd_bwd_ms"],
         train_shape_backward_ms=fn_grad["backward_ms"],
@@ -2642,6 +2840,7 @@ def main() -> None:
         train_shape_fwd_bwd_bound_ms=fn_grad["bound_ms"],
         max_abs_err=max(r["max_abs_err"] for r in wgmma_rows),
         ms=flash_serve["ms"], **flash_common,
+        direct_ms=flash_serve["direct_ms"],
         tflops=flash_serve["tflops"],
         share_of_bound=flash_serve["share_of_bound"],
         main_path_device_us_per_launch=serve[

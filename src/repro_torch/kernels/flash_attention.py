@@ -41,14 +41,20 @@ GFLOP, 17.4 µs at 989 TFLOP/s, against 42 MB (12.5 µs) of bytes.
 
 A wrapper takes the plain version only for a tensor that lies on the CPU; for
 a CUDA tensor it launches the routed kernel or raises: no route gives way to
-the other or to the plain version.
+the other or to the plain version.  Off the CPU the wrapper calls the op
+``repro_torch::flash_attention`` (``torch.library``): its one (CUDA)
+implementation is the routed launch, and its fake implementation (the same
+contract checks, an empty output) with the FLOP formula registered beside it
+lets :func:`repro_torch.launch.roofline.trace_cost` trace a model on fake
+tensors and count ``4·D`` a valid pair and head, launching nothing.
 
 **Gradient.** The kernels write their result through ``ctypes`` into a fresh
-tensor, which has no ``grad_fn``: called directly, the wrapper's output
-carries no gradient to ``q``, ``k`` or ``v``.  :class:`FlashAttentionFn` is
-the differentiable form: its forward is the wrapper (the routed kernel on a
-card), its backward recomputes the attention of the saved ``q, k, v``
-through :func:`flash_attention_plain` and differentiates that.  The
+tensor: called directly on a card, the wrapper's output (the op's, on
+detached inputs) carries no gradient to ``q``, ``k`` or ``v``.
+:class:`FlashAttentionFn` is the differentiable form: its forward is the
+wrapper (the routed kernel on a card), its backward recomputes the
+attention of the saved ``q, k, v`` through :func:`flash_attention_plain`
+and differentiates that.  The
 reference has no backward kernel either: its models train through the
 plain ``chunked_attention``.  Each backward counts itself in
 :data:`backward_plain_calls`.
@@ -58,7 +64,9 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..accel.kernels import build
 
@@ -215,27 +223,41 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 2, 1, 3).to(q.dtype)               # (B, Tq, H, Dv)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0, q_offset: int = 0
-                    ) -> torch.Tensor:
-    """``q`` ``(B, T, H, D)``, ``k`` / ``v`` ``(B, S, Hkv, D)`` ->
-    ``(B, T, H, D)`` in ``q``'s dtype (f32 or bf16 on the card)."""
-    global launches
+def _check_contract(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, window: int, q_offset: int) -> None:
     _check_shapes(q, k, v)
-    B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    T, S = q.shape[1], k.shape[1]
     if rows_without_key(T, S, q_offset, causal, window):
         raise ValueError(
             f"flash_attention: some query row has no valid key (T={T}, S={S}, "
             f"q_offset={q_offset}, causal={causal}, window={window}); the "
             f"kernel's contract needs at least one")
-    dev = q.device
-    if dev.type == "cpu":
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """``q`` ``(B, T, H, D)``, ``k`` / ``v`` ``(B, S, Hkv, D)`` ->
+    ``(B, T, H, D)`` in ``q``'s dtype (f32 or bf16 on the card).  On the CPU
+    the plain version (differentiable, as it always was there); on any
+    other device the op ``repro_torch::flash_attention``, whose output
+    carries no gradient (:class:`FlashAttentionFn` is the differentiable
+    form)."""
+    if q.device.type == "cpu":
+        _check_contract(q, k, v, causal, window, q_offset)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
-    route = flash_route(q.dtype, D)
+    return flash_attention_op(q.detach(), k.detach(), v.detach(), causal,
+                              window, q_offset)
+
+
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool, window: int, q_offset: int
+                          ) -> torch.Tensor:
+    """The op's CUDA implementation: the checks and the routed launch."""
+    _check_contract(q, k, v, causal, window, q_offset)
+    dev = q.device
+    route = flash_route(q.dtype, q.shape[3])
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
@@ -250,6 +272,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         launch(route, q, k, v, out, causal=causal, window=window,
                q_offset=q_offset, stream=stream)
     return out
+
+
+# The wrapper's op, so that a trace on fake tensors (``launch.roofline``)
+# can run it: a card launches the routed kernel, a fake (or ``meta``) tensor
+# gets an empty output of q's shape after the same contract checks, and a
+# FLOP counter counts 4·D a valid pair.  It has no CPU implementation: the
+# wrapper takes the plain version there before it reaches the op.
+flash_attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _flash_attention_cuda, mutates_args=(),
+    device_types="cuda")
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, q_offset):
+    _check_contract(q, k, v, causal, window, q_offset)
+    return torch.empty_like(q)
+
+
+def valid_pairs(T: int, S: int, causal: bool, window: int,
+                q_offset: int) -> int:
+    """(query, key) pairs the mask lets through, per batch row and head."""
+    qpos = q_offset + np.arange(T)
+    last = np.minimum(S - 1, qpos) if causal else np.full(T, S - 1)
+    first = np.maximum(0, qpos - window + 1) if window > 0 else np.zeros(T)
+    return int(np.clip(last - first + 1, 0, None).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window,
+                           q_offset, *args, out_shape=None, **kwargs) -> int:
+    """``4·D`` a valid pair and head: ``Q·Kᵀ`` and ``P·V``, two FLOPs a
+    multiply-add each."""
+    B, T, H, D = q_shape
+    return 4 * D * B * H * valid_pairs(T, k_shape[1], causal, window,
+                                       q_offset)
 
 
 def launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

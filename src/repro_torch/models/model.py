@@ -15,6 +15,8 @@ Entry points (functions of parameter trees, as in the reference):
   trainer's and the FL client's loss; differentiable by autograd
 * ``prefill(params, batch)``     — last-position logits + decode caches
 * ``decode_step(params, caches, token, cache_len)``
+* ``block_fns(kind, seq_len, global_batch, *, remat=True)`` — one
+  repetition of each group's layers alone, for the dry-run's roofline
 
 A group's layers are stacked on a leading ``count`` axis, as the reference
 scans them; here a Python loop walks the layers, taking each layer's
@@ -261,6 +263,87 @@ class Model:
             return {"token": meta((B, 1), ii), "cache_len": meta((), ii),
                     "caches": caches}
         raise ValueError(kind)
+
+    # ----------------------------------------------- roofline block programs
+
+    def block_fns(self, kind: str, seq_len: int, global_batch: int,
+                  *, remat: bool = True) -> List[Dict[str, Any]]:
+        """One entry per block group: ``{fn, abstract, count, name,
+        block_spec}``, ``fn`` one repetition of the group's period of layers
+        and ``abstract`` its arguments as ``meta`` tensors (the reference's
+        ``Model.block_fns``).  The kinds:
+
+        * ``train``: ``fn(bp, x, vis=None)`` is ``value_and_grad`` of
+          ``mean(x.float()**2) + 0.01·aux`` over the period, with respect to
+          ``(bp, x)``, under ``torch.utils.checkpoint`` when ``remat``;
+        * ``prefill``: ``fn(bp, x, vis=None) -> (x, caches)``;
+        * ``decode``: ``fn(bp, cache, x, cache_len) -> (x, caches)``, the
+          caches written in place; ``abstract["cache_len"]`` is the int
+          ``seq_len - 1`` (a full cache: decode reads all of it whatever its
+          length) and ``abstract["cache_spec"]`` the cache's spec tree.
+
+        The dry-run traces each alone (:mod:`repro_torch.launch.dryrun`)."""
+        from ..train.train_step import value_and_grad
+        cfg = self.cfg
+        B, T = global_batch, seq_len
+
+        def meta(shape, dtype=torch.bfloat16):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        x_t = meta((B, T, cfg.d_model))
+        vis_t = (meta((B, cfg.vision_seq, cfg.d_model))
+                 if cfg.family == "vlm" else None)
+        out: List[Dict[str, Any]] = []
+        for gi, g in enumerate(self.groups):
+            block_spec = {f"l{i}": layer_specs(d, cfg)
+                          for i, d in enumerate(g.descs)}
+            abstract: Dict[str, Any] = {"bp": abstract_params(block_spec)}
+            if kind == "train":
+                def fn(bp, x, vis=None, g=g):
+                    def inner(args):
+                        bp, x = args
+                        aux = torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
+                        x, aux = self._period(g, bp, x, aux, vis)
+                        return torch.mean(x.to(torch.float32) ** 2) \
+                            + 0.01 * aux
+                    if remat:
+                        return value_and_grad(
+                            lambda a: checkpoint(inner, a,
+                                                 use_reentrant=False),
+                            (bp, x))
+                    return value_and_grad(inner, (bp, x))
+            elif kind == "prefill":
+                @torch.no_grad()
+                def fn(bp, x, vis=None, g=g):
+                    cs = {}
+                    for i, desc in enumerate(g.descs):
+                        x, cs[f"l{i}"] = apply_layer_prefill(
+                            bp[f"l{i}"], x, desc, cfg, vis=vis)
+                    return x, cs
+            elif kind == "decode":
+                cache_spec = {f"l{i}": cache_specs(d, cfg, B, T)
+                              for i, d in enumerate(g.descs)}
+
+                @torch.no_grad()
+                def fn(bp, cache, x, cache_len, g=g):
+                    ncs = {}
+                    for i, desc in enumerate(g.descs):
+                        x, ncs[f"l{i}"] = apply_layer_decode(
+                            bp[f"l{i}"], x, desc, cfg, cache[f"l{i}"],
+                            cache_len)
+                    return x, ncs
+                abstract.update(cache=abstract_params(cache_spec),
+                                x=meta((B, 1, cfg.d_model)),
+                                cache_len=T - 1, cache_spec=cache_spec)
+            else:
+                raise ValueError(kind)
+            if kind != "decode":
+                abstract["x"] = x_t
+                if vis_t is not None:
+                    abstract["vis"] = vis_t
+            out.append({"fn": fn, "abstract": abstract, "count": g.count,
+                        "name": f"group{gi}", "block_spec": block_spec})
+        return out
 
 
 def _iter_with_path(tree, prefix=""):

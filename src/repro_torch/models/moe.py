@@ -25,7 +25,10 @@ batched product an expert over the group-major capacity buffers, and the
 combine is in the activation dtype, as in the reference.  A capacity far
 above the load (a factor of ``E / K``, where nothing can be dropped) would
 leave most buffer rows empty: past :data:`PAD_ROWS` empty rows the buffers
-are cut to the largest load, which costs one read of it to the host.
+are cut to the largest load, which costs one read of it to the host.  A
+trace on fake tensors (``launch.dryrun``) has no load to read and keeps the
+static capacity: the reference's shape, and an upper bound on the buffers a
+card allocates.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from .common import ACTIVATIONS, _const, spec
 from .ffn import gated_mlp, gated_mlp_specs
@@ -132,7 +136,7 @@ def _moe_grouped(p: Dict[str, Any], x: torch.Tensor, *, top_k: int,
     # than PAD_ROWS rows of the (G, E, cap) buffers empty (a capacity far
     # above the load), as many as the largest kept load, read back once:
     # the same slots, the same output
-    if G * E * cap - N * K > PAD_ROWS:
+    if G * E * cap - N * K > PAD_ROWS and not is_fake(pos_k):
         cap = max(1, min(cap, int(pos_k.max()) + 1))
     dest = torch.where(keep, top_idx * cap + pos_k,
                        torch.full_like(pos_k, E * cap)).reshape(G, S * K)

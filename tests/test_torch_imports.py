@@ -62,7 +62,9 @@ def test_package_has_the_expected_modules():
                  "repro_torch.data", "repro_torch.data.synthetic",
                  "repro_torch.fed.client", "repro_torch.train.train_step",
                  "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.mesh",
+                 "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.elastic", "repro_torch.core.ilp"):
         assert name in MODULES, name
     csrc = PKG / "accel" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",
