@@ -70,7 +70,16 @@ process: 10 steps, the full-width state (12.4 GB) saved, restored bit-equal
 onto a fresh mesh, 5 more steps, every loss finite; and last, when nothing
 else is timed, (a) the whole dry-run — ``python -m repro_torch.launch.dryrun
 --all`` in a child process, tracing every supported arch × shape cell of the
-ten configs on fake ``cuda:0`` tensors — every cell ``ok``. It imports
+ten configs on fake ``cuda:0`` tensors — every cell ``ok``; beside it, in
+two more child processes at ``REPRO_BENCH_FAST=1``, the paper's
+reproduction suite and the examples (``paper``): (a) every entry of
+``python -m repro_torch.benchmarks.run`` on ``cuda:0`` (Tables 1-4, Figures
+10-14, the scenario bench, the kernel bench), its rows and ``*_validates``
+flags printed, (c) its ``match_segment`` and ``segmented_order`` launches,
+(e) the kernel bench's three kernels against their plain versions at the
+reference's shapes; (b) Table 1's simulations again on the per-device loop,
+identical to the array drain's; (d) the five examples of
+``repro_torch.examples``, each with its launches. It imports
 ``repro_torch`` only.
 
 Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
@@ -78,8 +87,9 @@ Output: one JSON object per line (``env``, ``kernel_checks``, ``matcher``,
 ``scenarios``, ``fl_kernel_checks``, ``fl_round_setup``,
 one ``fl_round_job`` per job and round, ``fl_round``,
 ``flash_kernel_checks``, ``serve``, ``serve_families``, ``train_checks``,
-``train``, ``train_families``, ``launch_dryrun_cells``, ``launch``,
-``total_seconds``), the card's name and power limit, the
+``train``, ``train_families``, the paper phase's children's output,
+``paper``, ``launch_dryrun_cells``, ``launch``, ``total_seconds``), the
+card's name and power limit, the
 ``kernels`` summary line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failure raises;
 without a CUDA device the script exits non-zero before printing a result.
@@ -2549,22 +2559,32 @@ def phase_train_families(smi):
 # 11. launch: the dry-run, its predictions against the card, elastic restart
 # --------------------------------------------------------------------------- #
 
-def _dryrun_sweep():
+def _start_dryrun_sweep(tmpdir):
     """``python -m repro_torch.launch.dryrun --all`` in a child process
     (fake ``cuda:0`` tensors; it launches nothing), after every timed phase
     of the card: every supported arch × shape cell ``ok``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    with tempfile.TemporaryDirectory() as tmpdir:
-        out = os.path.join(tmpdir, "dryrun.jsonl")
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-             "--out", out], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        assert res.returncode == 0, (res.stdout[-2000:], res.stderr[-3000:])
-        with open(out) as f:
-            recs = [json.loads(line) for line in f]
+    out = os.path.join(tmpdir, "dryrun.jsonl")
+    log = open(os.path.join(tmpdir, "dryrun.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", out], cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, log, out, time.perf_counter()
+
+
+def _finish_dryrun_sweep(proc, log, out, t0):
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        proc.kill()
+        log.close()
+    wall = time.perf_counter() - t0
+    with open(log.name) as f:
+        stdout = f.read()
+    assert rc == 0, stdout[-4000:]
+    with open(out) as f:
+        recs = [json.loads(line) for line in f]
     want = [(a, s) for a, s, _, ok in dryrun_mod.iter_cells("host") if ok]
     assert [(r["arch"], r["shape"]) for r in recs] == want, recs
     assert all(r["status"] == "ok" for r in recs), recs
@@ -2580,7 +2600,7 @@ def _dryrun_sweep():
     return {"cells": cells, "n_cells": len(recs), "failures": 0,
             "wall_s": wall, "trace_s_sum": sum(r["trace_s"] for r in recs),
             "device": recs[0]["device"],
-            "tail": res.stdout.splitlines()[-1]}
+            "tail": stdout.splitlines()[-1]}
 
 
 # (b): cells the earlier phases run — (arch, kind, batch, seq)
@@ -2682,13 +2702,23 @@ def _elastic():
 def phase_launch(smi):
     """The launch layer: (b) the dry-run's predictions against the card at
     three shapes the earlier phases run; (c) the elastic restart at
-    llama3.2-1b's full width; then (a), on an idle card, the whole dry-run
-    over every registered arch × shape cell on the host mesh."""
+    llama3.2-1b's full width; then, when no timed phase loads the host,
+    (a) the whole dry-run over every registered arch × shape cell on the
+    host mesh in a child process, beside the two children of the paper
+    phase (12), whose walls are therefore taken beside the sweep's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     flash_mod.reset_launches()
     b = [_predicted_vs_measured(*cell) for cell in LAUNCH_CELLS]
     c = _elastic()
-    a = _dryrun_sweep()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        sweep = _start_dryrun_sweep(tmpdir)
+        procs = start_paper(tmpdir)
+        try:
+            a = _finish_dryrun_sweep(*sweep)
+            paper = finish_paper(procs, timeout=1000)
+        finally:
+            for proc in [sweep[0]] + [p for p, *_ in procs.values()]:
+                proc.kill()
     print(json.dumps({"launch_dryrun_cells": [
         [c["arch"], c["shape"], round(c["peak_gb"], 3), c["fits_hbm"],
          c["bottleneck"], round(c["step_ms"], 3), round(c["useful_ratio"], 4)]
@@ -2696,7 +2726,188 @@ def phase_launch(smi):
     out = {"gpu": smi, "dryrun": a, "predicted_vs_measured": b,
            "elastic": c}
     emit("launch", out)
-    return out
+    return out, paper
+
+
+# --------------------------------------------------------------------------- #
+# 12. the paper's reproduction suite and the five examples
+# --------------------------------------------------------------------------- #
+
+# bench_kernels' rows at the reference's shapes: each kernel against its
+# plain version, within the tolerances of the kernel line below
+PAPER_TOL = {"fedavg_reduce": 1e-6, "quantize": 0.0,
+             "flash_attention_wgmma": 2e-2}
+
+
+def _paper_counts():
+    return {"match_segment": segment_mod.launches,
+            "segmented_order": replan_order.launches_order,
+            "quantize": quant_mod.quantize_launches,
+            "dequantize": quant_mod.dequantize_launches,
+            "fedavg_reduce": fedavg_mod.launches,
+            "flash_attention_wgmma": flash_mod.launches_wgmma,
+            "flash_attention": flash_mod.launches_fma}
+
+
+def _since(before):
+    return {k: v - before[k] for k, v in _paper_counts().items()}
+
+
+def _paper_result(obj):
+    """The child's last line: its results and its own wall from import."""
+    obj["child_s"] = time.perf_counter() - T_START
+    print("paper_result: " + json.dumps(obj), flush=True)
+
+
+def paper_suite():
+    """(a), (c), (e), in a child process with ``REPRO_BENCH_FAST=1``:
+    ``python -m repro_torch.benchmarks.run``'s ``main`` over every entry on
+    ``cuda:0``, each entry's wall and kernel launches; bench_kernels'
+    kernels against their plain versions at the reference's shapes."""
+    from repro_torch.benchmarks import common as bench_common
+    from repro_torch.benchmarks import run as bench_run
+    assert bench_common.FAST and bench_common.SEEDS == (1,) \
+        and bench_common.N_JOBS == 30
+    entries, kernels = {}, {}
+
+    def counted(name, fn):
+        def entry(device):
+            before = _paper_counts()
+            t0 = time.perf_counter()
+            out = fn(device=device)
+            torch.cuda.synchronize()
+            entries[name] = {"wall_s": time.perf_counter() - t0,
+                             "launches": _since(before)}
+            if name == "kernels":
+                kernels.update(out)
+            return out
+        return entry
+
+    bench_run.ALL[:] = [(n, counted(n, f)) for n, f in bench_run.ALL]
+    before = _paper_counts()
+    t0 = time.perf_counter()
+    bench_run.main(["--device", str(DEV)])        # exits 1 on a failure
+    wall = time.perf_counter() - t0
+    launches = _since(before)
+    assert launches["match_segment"] > 0 and launches["segmented_order"] > 0, \
+        launches
+    assert set(entries) == {n for n, _ in bench_run.ALL}, entries
+    for name, tol in PAPER_TOL.items():
+        assert kernels[name]["max_abs_err"] <= tol, (name, kernels[name])
+    _paper_result({"wall_s": wall, "launches": launches, "entries": entries,
+                   "kernels": kernels})
+
+
+def paper_engines_and_examples():
+    """(b) and (d), in a child process with ``REPRO_BENCH_FAST=1``: Table
+    1's simulations on the array drain (through ``table1_workloads.main``)
+    and again on the per-device loop, on ``cuda:0``, identical; then the
+    five examples, each as its ``python -m`` entry runs it, with its
+    kernel launches."""
+    from repro_torch.benchmarks import common as bench_common
+    from repro_torch.benchmarks import table1_workloads
+    from repro_torch.examples import (elastic_restart, fl_multijob_training,
+                                      quickstart, scenario_tour,
+                                      serve_batched)
+    assert bench_common.FAST
+    runs = {}
+    run_sched = bench_common.run_sched
+
+    def recorded(name, cfg, seed, pop_kw=None, device=None, engine="array",
+                 **kw):
+        out = run_sched(name, cfg, seed, pop_kw, device, engine, **kw)
+        runs[(name, cfg.workload, seed)] = (cfg, out)
+        return out
+
+    bench_common.run_sched = recorded
+    try:
+        t0 = time.perf_counter()
+        table1_workloads.main(device=DEV)
+        array_s = time.perf_counter() - t0
+    finally:
+        bench_common.run_sched = run_sched
+    assert len(runs) == 4 * len(table1_workloads.WORKLOADS), sorted(runs)
+    python_s = 0.0
+    for (name, wl, seed), (cfg, (m_arr, _, _)) in runs.items():
+        m_py, wall, _ = run_sched(name, cfg, seed, device=DEV,
+                                  engine="python")
+        python_s += wall
+        _same_run(f"table1 {wl} {name} s{seed}", m_arr, m_py,
+                  skip=("degraded_segments",))
+        assert len(m_arr.rounds) > 0, (wl, name)
+    examples = {}
+    for name, mod, argv in (
+            ("quickstart", quickstart, []),
+            ("scenario_tour", scenario_tour, []),
+            ("serve_batched", serve_batched, []),
+            ("fl_multijob_training", fl_multijob_training, []),
+            ("elastic_restart", elastic_restart, [])):
+        print(f"\n## example {name}", flush=True)
+        before = _paper_counts()
+        t0 = time.perf_counter()
+        rc = mod.main(argv)
+        torch.cuda.synchronize()
+        assert rc in (None, 0), (name, rc)
+        examples[name] = {"wall_s": time.perf_counter() - t0,
+                          "launches": _since(before)}
+    ex = examples
+    assert ex["quickstart"]["launches"]["match_segment"] > 0, ex
+    assert ex["scenario_tour"]["launches"]["match_segment"] > 0, ex
+    assert ex["serve_batched"]["launches"]["flash_attention_wgmma"] > 0, ex
+    # one job a requirement class, so no group holds two jobs to resort
+    fl = ex["fl_multijob_training"]["launches"]
+    assert all(fl[k] > 0 for k in ("quantize", "dequantize", "fedavg_reduce",
+                                   "flash_attention_wgmma")), fl
+    assert ex["elastic_restart"]["launches"]["flash_attention_wgmma"] > 0, ex
+    assert all(e["launches"]["flash_attention"] == 0 for e in ex.values()), ex
+    _paper_result({"table1_simulations": len(runs),
+                   "table1_identical_across_engines": True,
+                   "table1_array_s": array_s, "table1_python_s": python_s,
+                   "examples": examples})
+
+
+def start_paper(tmpdir):
+    """The two children of the paper phase, started together: each writes
+    its output to a file in ``tmpdir``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_BENCH_FAST="1")
+    procs = {}
+    for name in ("paper_suite", "paper_engines_and_examples"):
+        out = open(os.path.join(tmpdir, name + ".out"), "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.{name}()"],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT), out,
+            time.perf_counter())
+    return procs
+
+
+def finish_paper(procs, timeout):
+    """Wait for both children; print their output (the suite's rows and
+    its ``*_validates`` flags as found, the examples' output) and one
+    ``paper`` line."""
+    result = {}
+    for name, (proc, out, t0) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(timeout - (time.perf_counter() - t0),
+                                       1))
+        finally:
+            proc.kill()
+            out.close()
+        with open(out.name) as f:
+            lines = f.read().splitlines()
+        for line in lines[:-1]:
+            print(line)
+        assert rc == 0 and lines and lines[-1].startswith("paper_result: "), \
+            (name, rc, lines[-40:])
+        result[name] = json.loads(lines[-1].removeprefix("paper_result: "))
+        if name == "paper_suite":
+            rows = [ln.split(",", 2) for ln in lines]
+            result["validates"] = {
+                r[0]: r[2] for r in rows
+                if len(r) == 3 and r[0].endswith("_validates")}
+    assert len(result["validates"]) == 9, result["validates"]
+    emit("paper", result)
+    return result
 
 
 def main() -> None:
@@ -2726,7 +2937,7 @@ def main() -> None:
     train_checks = phase_train_checks()
     train = phase_train()
     phase_train_families(smi)
-    launch = phase_launch(smi)
+    launch, paper = phase_launch(smi)
 
     print(smi, flush=True)
     src = "src/repro_torch/accel/kernels/csrc/"
@@ -2860,6 +3071,22 @@ def main() -> None:
         tflops=flash_serve["fma_tflops"],
         on_path=False, dtypes="f32",
         bf16_max_abs_err=flash_serve["fma_max_abs_err"]))
+    # the paper phase: launches over the FAST suite and over the five
+    # examples; bench_kernels' rows at the reference's shapes
+    suite = paper["paper_suite"]
+    examples = paper["paper_engines_and_examples"]["examples"].values()
+    timing = suite["entries"]["kernels"]["launches"]   # the bench's own
+    for k in kernels:
+        if k["name"] in suite["launches"]:
+            k.update(paper_suite_launches=suite["launches"][k["name"]]
+                     - timing[k["name"]],
+                     paper_examples_launches=sum(
+                         e["launches"][k["name"]] for e in examples))
+        bench = suite["kernels"].get(k["name"])
+        if bench is not None:
+            k.update(paper_kernels_max_abs_err=bench["max_abs_err"],
+                     paper_kernels_ms=bench["kernel_us"] / 1e3,
+                     paper_kernels_plain_ms=bench["plain_us"] / 1e3)
     # f32 rows; bf16 rows (fedavg_reduce's, flash_attention_wgmma's): 2e-2
     tolerance = {"fedavg_reduce": 1e-6, "flash_attention": 2e-6,
                  "flash_attention_wgmma": 2e-2}

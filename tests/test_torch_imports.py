@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the reference package,
+"""The port stands alone: it imports neither JAX, nor the reference package,
+nor the reference's ``benchmarks`` suite,
 its modules import without a GPU or a CUDA compiler, and nothing in it falls
 back to the CPU when no card is present."""
 import os
@@ -19,7 +20,8 @@ MODULES = sorted(
     for p in PKG.rglob("*.py"))
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])", re.M)
+    r"^\s*(import\s+(jax|repro|benchmarks)\b"
+    r"|from\s+(jax|repro|benchmarks)[\s.])", re.M)
 
 
 def test_package_has_the_expected_modules():
@@ -64,7 +66,25 @@ def test_package_has_the_expected_modules():
                  "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
                  "repro_torch.launch.train", "repro_torch.launch.mesh",
                  "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-                 "repro_torch.launch.elastic", "repro_torch.core.ilp"):
+                 "repro_torch.launch.elastic", "repro_torch.core.ilp",
+                 "repro_torch.benchmarks", "repro_torch.benchmarks.common",
+                 "repro_torch.benchmarks.run",
+                 "repro_torch.benchmarks.table1_workloads",
+                 "repro_torch.benchmarks.table2_demand_percentiles",
+                 "repro_torch.benchmarks.table3_resource_types",
+                 "repro_torch.benchmarks.table4_biased",
+                 "repro_torch.benchmarks.fig10_overhead",
+                 "repro_torch.benchmarks.fig11_breakdown",
+                 "repro_torch.benchmarks.fig12_numjobs",
+                 "repro_torch.benchmarks.fig13_tiers",
+                 "repro_torch.benchmarks.fig14_fairness",
+                 "repro_torch.benchmarks.bench_scenarios",
+                 "repro_torch.benchmarks.bench_kernels",
+                 "repro_torch.examples", "repro_torch.examples.quickstart",
+                 "repro_torch.examples.scenario_tour",
+                 "repro_torch.examples.serve_batched",
+                 "repro_torch.examples.fl_multijob_training",
+                 "repro_torch.examples.elastic_restart"):
         assert name in MODULES, name
     csrc = PKG / "accel" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {"masked_first_fit.cu",
@@ -83,7 +103,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'benchmarks'))\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules\n"
         "print('imported', len(mods))\n")
