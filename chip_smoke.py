@@ -73,11 +73,15 @@ else is timed, (a) the whole dry-run — ``python -m repro_torch.launch.dryrun
 ten configs on fake ``cuda:0`` tensors — every cell ``ok``; beside it, in
 two more child processes at ``REPRO_BENCH_FAST=1``, the paper's
 reproduction suite and the examples (``paper``): (a) every entry of
-``python -m repro_torch.benchmarks.run`` on ``cuda:0`` (Tables 1-4, Figures
-10-14, the scenario bench, the kernel bench), its rows and ``*_validates``
-flags printed, (c) its ``match_segment`` and ``segmented_order`` launches,
-(e) the kernel bench's three kernels against their plain versions at the
-reference's shapes; (b) Table 1's simulations again on the per-device loop,
+``python -m repro_torch.benchmarks.run`` on ``cuda:0`` (the hot-path record
+``bench_hotpath`` first, then Tables 1-4, Figures 10-14, the scenario
+bench, the kernel bench), its rows and ``*_validates`` flags printed, the
+hot path's report and history written to the phase's temporary directory
+and its history held by the port's ``regress check``, (c) its
+``match_segment`` and ``segmented_order`` launches, the hot path's own
+among them, (e) the kernel bench's three kernels against their plain
+versions at the reference's shapes; (b) Table 1's simulations again on the
+per-device loop,
 identical to the array drain's; (d) the five examples of
 ``repro_torch.examples``, each with its launches. It imports
 ``repro_torch`` only.
@@ -2710,6 +2714,7 @@ def phase_launch(smi):
     flash_mod.reset_launches()
     b = [_predicted_vs_measured(*cell) for cell in LAUNCH_CELLS]
     c = _elastic()
+    records = _bench_records()
     with tempfile.TemporaryDirectory() as tmpdir:
         sweep = _start_dryrun_sweep(tmpdir)
         procs = start_paper(tmpdir)
@@ -2719,6 +2724,7 @@ def phase_launch(smi):
         finally:
             for proc in [sweep[0]] + [p for p, *_ in procs.values()]:
                 proc.kill()
+    assert _bench_records() == records, "the hot path wrote into the tree"
     print(json.dumps({"launch_dryrun_cells": [
         [c["arch"], c["shape"], round(c["peak_gb"], 3), c["fits_hbm"],
          c["bottleneck"], round(c["step_ms"], 3), round(c["useful_ratio"], 4)]
@@ -2737,6 +2743,22 @@ def phase_launch(smi):
 # plain version, within the tolerances of the kernel line below
 PAPER_TOL = {"fedavg_reduce": 1e-6, "quantize": 0.0,
              "flash_attention_wgmma": 2e-2}
+
+
+# the reference's CPU records and the port's hot-path outputs at the root:
+# a smoke run writes none of them
+BENCH_RECORDS = ("BENCH_hotpath.json", "BENCH_history.jsonl",
+                 "BENCH_torch_hotpath.json", "BENCH_torch_history.jsonl")
+
+
+def _bench_records():
+    out = {}
+    for name in BENCH_RECORDS:
+        path = os.path.join(ROOT, name)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                out[name] = f.read()
+    return out
 
 
 def _paper_counts():
@@ -2762,13 +2784,19 @@ def _paper_result(obj):
 def paper_suite():
     """(a), (c), (e), in a child process with ``REPRO_BENCH_FAST=1``:
     ``python -m repro_torch.benchmarks.run``'s ``main`` over every entry on
-    ``cuda:0``, each entry's wall and kernel launches; bench_kernels'
-    kernels against their plain versions at the reference's shapes."""
+    ``cuda:0``, each entry's wall and kernel launches; the hot path's rows
+    (its report and history in ``REPRO_BENCH_OUT``, the phase's temporary
+    directory), its history through the port's ``regress`` gate;
+    bench_kernels' kernels against their plain versions at the reference's
+    shapes."""
     from repro_torch.benchmarks import common as bench_common
+    from repro_torch.benchmarks import regress
     from repro_torch.benchmarks import run as bench_run
     assert bench_common.FAST and bench_common.SEEDS == (1,) \
         and bench_common.N_JOBS == 30
-    entries, kernels = {}, {}
+    out_dir = os.environ["REPRO_BENCH_OUT"]
+    assert os.path.realpath(out_dir) != os.path.realpath(ROOT), out_dir
+    entries, kernels, hotpath = {}, {}, {}
 
     def counted(name, fn):
         def entry(device):
@@ -2780,6 +2808,8 @@ def paper_suite():
                              "launches": _since(before)}
             if name == "kernels":
                 kernels.update(out)
+            if name == "hotpath":
+                hotpath.update(out)
             return out
         return entry
 
@@ -2794,8 +2824,28 @@ def paper_suite():
     assert set(entries) == {n for n, _ in bench_run.ALL}, entries
     for name, tol in PAPER_TOL.items():
         assert kernels[name]["max_abs_err"] <= tol, (name, kernels[name])
+    # the hot path on the card: both scheduler kernels launched by it alone;
+    # the churn row's three legs and the audit-on run identical (the row
+    # functions assert it, and the replay's bit-identity, as they run)
+    hot = entries["hotpath"]["launches"]
+    assert hot["match_segment"] > 0 and hot["segmented_order"] > 0, hot
+    assert hotpath["replan_r500_j2000"]["metrics_identical"] is True
+    assert hotpath["audit_overhead"]["metrics_identical"] is True
+    assert "tenx_r500_j2000" not in hotpath, "FAST skips tenx and heavy"
+    history = os.path.join(out_dir, "BENCH_torch_history.jsonl")
+    with open(history) as f:
+        rows = [json.loads(ln) for ln in f]
+    assert [r["workload"] for r in rows] == [
+        "profiled_r1.5_j50", "medium_r15_j100", "replan_r500_j2000",
+        "audit_overhead_paired"] and all(r["fast"] for r in rows), rows
+    gate = {}
+    for verb in ("check", "list"):
+        print(f"\n## regress {verb}", flush=True)
+        gate[verb] = regress.main([verb, "--history", history])
+        assert gate[verb] == 0, (verb, gate[verb])
     _paper_result({"wall_s": wall, "launches": launches, "entries": entries,
-                   "kernels": kernels})
+                   "kernels": kernels, "hotpath": hotpath,
+                   "regress_rc": gate})
 
 
 def paper_engines_and_examples():
@@ -2868,9 +2918,11 @@ def paper_engines_and_examples():
 
 def start_paper(tmpdir):
     """The two children of the paper phase, started together: each writes
-    its output to a file in ``tmpdir``."""
+    its output to a file in ``tmpdir``, and the hot path its report and
+    history there too (never into the checkout)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               REPRO_BENCH_FAST="1")
+               REPRO_BENCH_FAST="1", REPRO_BENCH_OUT=tmpdir,
+               REPRO_BENCH_HOST="chip_smoke")
     procs = {}
     for name in ("paper_suite", "paper_engines_and_examples"):
         out = open(os.path.join(tmpdir, name + ".out"), "w")
@@ -2905,6 +2957,7 @@ def finish_paper(procs, timeout):
             result["validates"] = {
                 r[0]: r[2] for r in rows
                 if len(r) == 3 and r[0].endswith("_validates")}
+    # the FAST hot path skips heavy, so prints no hotpath_heavy_validates
     assert len(result["validates"]) == 9, result["validates"]
     emit("paper", result)
     return result
@@ -3073,13 +3126,17 @@ def main() -> None:
         bf16_max_abs_err=flash_serve["fma_max_abs_err"]))
     # the paper phase: launches over the FAST suite and over the five
     # examples; bench_kernels' rows at the reference's shapes
+    # (``paper_suite_launches`` counts the hot path's too, and
+    # ``paper_hotpath_launches`` those alone)
     suite = paper["paper_suite"]
     examples = paper["paper_engines_and_examples"]["examples"].values()
     timing = suite["entries"]["kernels"]["launches"]   # the bench's own
+    hotpath = suite["entries"]["hotpath"]["launches"]
     for k in kernels:
         if k["name"] in suite["launches"]:
             k.update(paper_suite_launches=suite["launches"][k["name"]]
                      - timing[k["name"]],
+                     paper_hotpath_launches=hotpath[k["name"]],
                      paper_examples_launches=sum(
                          e["launches"][k["name"]] for e in examples))
         bench = suite["kernels"].get(k["name"])

@@ -1,6 +1,8 @@
 """The paper's reproduction suite on the port: one module per table or
-figure (Tables 1-4, Figures 10-14), the scenario bench and the kernel bench,
-each the counterpart of the repo's ``benchmarks/`` module of the same name.
+figure (Tables 1-4, Figures 10-14), the scenario bench, the kernel bench and
+the hot-path record with its regression gate (``bench_hotpath``,
+``regress``), each the counterpart of the repo's ``benchmarks/`` module of
+the same name.
 
     python -m repro_torch.benchmarks.run [names] [--device cpu]
 

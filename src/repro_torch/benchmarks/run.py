@@ -3,15 +3,15 @@ Prints ``name,us_per_call,derived`` CSV (harness contract).
 
     python -m repro_torch.benchmarks.run [names] [--device cpu]
 
-The reference's ``ALL`` in its order, without ``hotpath``.  A failing entry
-prints its traceback and the run exits 1.
+The reference's ``ALL`` in its order.  A failing entry prints its traceback
+and the run exits 1.
 """
 import argparse
 import sys
 import time
 import traceback
 
-from . import (bench_kernels, bench_scenarios, fig10_overhead,
+from . import (bench_hotpath, bench_kernels, bench_scenarios, fig10_overhead,
                fig11_breakdown, fig12_numjobs, fig13_tiers, fig14_fairness,
                table1_workloads, table2_demand_percentiles,
                table3_resource_types, table4_biased)
@@ -19,6 +19,7 @@ from .common import device_arg
 from ..device import resolve_device
 
 ALL = [
+    ("hotpath", bench_hotpath.main),
     ("scenarios", bench_scenarios.main),
     ("table1", table1_workloads.main),
     ("table2", table2_demand_percentiles.main),

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import json
 import math
+from itertools import islice, repeat
 from typing import Dict, List, Optional, Tuple
 
 __all__ = ["AUDIT", "AuditRecorder", "NULL_AUDIT", "NullAudit",
@@ -122,15 +123,18 @@ class AuditRecorder:
         # stay *flat all-scalar dicts* (CPython's collector untracks those
         # automatically, so a 20k-row buffer never inflates full-collection
         # passes over the simulator's hot loop), while replan snapshots are
-        # *deferred*: ``replan()`` stashes a small tuple of frozen object
-        # refs (the plan and the per-group dicts it rebinds each cycle) and
-        # the expensive part — interning, per-atom tables, sorting,
+        # *deferred*: ``replan()`` stashes what the snapshot needs as one
+        # flat tuple of values and refs to long-lived objects (jobs, groups,
+        # atom keys), and the expensive part — per-atom tables, sorting,
         # ``json.dumps`` of ~100 containers — runs once at export via
         # :meth:`_expand`.  Building snapshots inline measured ~130µs per
-        # replan in situ (>5% of the profiled workload on its own); the
-        # stash costs ~1 tuple + one pass over the group's job list.
-        # Expanded snapshots become JSON strings (strings are not GC
-        # containers, so the buffer stays cheap to traverse).
+        # replan in situ (>5% of the profiled workload on its own).  The
+        # one tuple a replan is the only GC container the stash keeps: a
+        # stash of refs to each replan's plan and snapshot lists kept ~40
+        # tracked objects a replan alive, and the young collections they
+        # set off (each one scanning the drain's list mirrors of its chunk,
+        # ~300k items at FAST sizing) cost more than the hooks themselves.
+        # Expanded snapshots become JSON strings, for the same reason.
         self._buf: List = []
         self._has_deferred = False
         self._by_kind: Dict[str, int] = {}
@@ -186,14 +190,14 @@ class AuditRecorder:
         never per check-in.  ``sched`` is duck-typed (``plan``, ``dispatch``,
         ``index`` attributes); obs stays import-free of repro_torch.core.
 
-        Only time-sensitive state is captured here: each job's current
-        fill (for queued demand) and refs to the plan's per-cycle objects.
-        ``_reschedule`` *rebinds* ``eligible_atoms``/``atom_rates``/
-        ``allocation``/``job_order``/``job_keys``/``atom_priority`` to fresh
-        objects every cycle (never mutates the old ones) and the plan object
-        itself is fresh, so the refs stay frozen until :meth:`_expand`
-        builds the actual records at export time, off the simulator's
-        critical path."""
+        Everything the snapshot needs is laid out in one flat tuple (see
+        ``__init__``): each job's current fill (queued demand) is read now,
+        and every other entry is a value or a long-lived object the
+        scheduler never mutates (jobs, groups, atom keys, rates) — the
+        plan's per-cycle containers are *rebound* every cycle, never
+        mutated, so copying their items here is all the freezing they
+        need.  :meth:`_expand` builds the actual records from the stash at
+        export time, off the simulator's critical path."""
         self._replan_seq += 1
         self._stale = False
         seq = self._replan_seq
@@ -203,26 +207,80 @@ class AuditRecorder:
         # record itself is sampled out
         snap = sched.dispatch.snapshot()
         self._slots = snap
-        plan = sched.plan
-        if not seq % self.replan_sample:
-            # queued demand depends on each job's fill *now*; everything
-            # else in the group tuple is a frozen ref (see docstring)
-            gstate = []
-            for g in plan.groups:
-                queued = 0
-                for j in plan.job_order.get(g.requirement.name, ()):
-                    r = j.current
-                    if r is not None and r.demand > r.granted:
-                        queued += r.demand - r.granted
-                gstate.append((g.requirement.name, float(g.supply), queued,
-                               g.eligible_atoms, g.atom_rates, g.allocation))
-        else:
-            gstate = None
         if len(self._buf) >= self.max_records:
             self.dropped += 1
             return
-        self._buf.append((seq, float(now), plan, snap if gstate is not None
-                          else None, gstate, sched.index.intern))
+        # layout, read back in the same order by _expand / _build_replan:
+        #   seq, t, n_orders (-1: no queue positions),
+        #     per order: group name, n, jobs..., n_keys (-1: none), keys...
+        #   sampled (bool); if sampled:
+        #     index, n_groups,
+        #       per group: name, supply, queued, n, jobs..., n_keys, keys...,
+        #                  n_atoms, atom keys..., their rates...,
+        #                  n_alloc, atom keys..., their rates...
+        #     n_atoms, per atom: key, n, groups in priority order...
+        #     n_dead, dead atom ids..., uncovered atoms, slots
+        f = [seq, float(now)]
+        plan = sched.plan
+        job_order = plan.job_order
+        job_keys = plan.job_keys
+        if self.queue_positions:
+            f.append(len(job_order))
+            for gname, jobs in job_order.items():
+                keys = job_keys.get(gname)
+                f += (gname, len(jobs))
+                f += jobs
+                if keys is None:
+                    f.append(-1)
+                else:
+                    f.append(len(keys))
+                    f += keys
+        else:
+            f.append(-1)
+        if seq % self.replan_sample:
+            f.append(False)
+        else:
+            f += (True, sched.index, len(plan.groups))
+            for g in plan.groups:
+                gname = g.requirement.name
+                jobs = job_order.get(gname, ())
+                # queued demand depends on each job's fill *now*
+                queued = 0
+                for j in jobs:
+                    r = j.current
+                    if r is not None and r.demand > r.granted:
+                        queued += r.demand - r.granted
+                keys = job_keys.get(gname, ())
+                f += (gname, float(g.supply), queued, len(jobs))
+                f += jobs
+                f.append(len(keys))
+                f += keys
+                elig = g.eligible_atoms
+                f.append(len(elig))
+                f += elig
+                f += map(g.atom_rates.get, elig, repeat(0.0))
+                alloc = g.allocation
+                f.append(len(alloc))
+                f += alloc
+                f += alloc.values()
+            f.append(len(plan.atom_priority))
+            for akey, order in plan.atom_priority.items():
+                f += (akey, len(order))
+                f += order
+            n_dead = len(f)
+            f.append(0)
+            uncovered = 0
+            nslots = 0
+            for i, sl in enumerate(snap):
+                if sl is None:
+                    uncovered += 1
+                elif sl:
+                    nslots += len(sl)
+                else:
+                    f.append(i)
+            f[n_dead] = len(f) - n_dead - 1
+            f += (uncovered, nslots)
+        self._buf.append(tuple(f))
         self._has_deferred = True
 
     # ---------------------------------------------------- deferred expansion
@@ -242,25 +300,32 @@ class AuditRecorder:
             if type(e) is not tuple:
                 out.append(e)
                 continue
-            seq, t, plan, snap, gstate, intern = e
-            if self.queue_positions:
+            it = iter(e)
+            nxt = it.__next__
+            seq = nxt()
+            t = nxt()
+            n_orders = nxt()
+            if n_orders >= 0:
                 n0 = len(out)
-                self._expand_queue_positions(out, seq, t, plan)
+                self._expand_queue_positions(out, seq, t, it, n_orders)
                 if len(out) > n0:
                     by_kind["queue_pos"] = (by_kind.get("queue_pos", 0)
                                             + len(out) - n0)
-            if gstate is not None:
-                out.append(self._build_replan(seq, t, plan, snap, gstate,
-                                              intern))
+            if nxt():
+                out.append(self._build_replan(seq, t, it))
                 by_kind["replan"] = by_kind.get("replan", 0) + 1
         self._buf = out
 
-    def _expand_queue_positions(self, out: List, seq: int, t: float,
-                                plan) -> None:
+    def _expand_queue_positions(self, out: List, seq: int, t: float, it,
+                                n_orders: int) -> None:
+        nxt = it.__next__
         qpos = self._qpos
         qlast = self._qlast
-        for gname, jobs in plan.job_order.items():
-            ids = [j.job_id for j in jobs]
+        for _ in range(n_orders):
+            gname = nxt()
+            ids = [j.job_id for j in islice(it, nxt())]
+            nk = nxt()
+            keys = None if nk < 0 else [float(k) for k in islice(it, nk)]
             # group-level fast path: an unchanged ordered id list means every
             # job's (pos, ahead) in this group is unchanged — skip without
             # building the per-job ahead tuples (queue order is stable across
@@ -268,7 +333,6 @@ class AuditRecorder:
             if qlast.get(gname) == ids:
                 continue
             qlast[gname] = ids
-            keys = plan.job_keys.get(gname)
             for pos, jid in enumerate(ids):
                 ahead = ids[:pos]
                 cur = (gname, pos, tuple(ahead))
@@ -277,42 +341,53 @@ class AuditRecorder:
                     out.append({
                         "kind": "queue_pos", "replan": seq, "t": t,
                         "job": jid, "group": gname, "pos": pos,
-                        "key": (float(keys[pos])
+                        "key": (keys[pos]
                                 if keys is not None and pos < len(keys)
                                 else None),
                         "ahead": ahead,
                     })
 
-    def _build_replan(self, seq: int, t: float, plan, snap, gstate,
-                      intern) -> str:
+    def _build_replan(self, seq: int, t: float, it) -> str:
+        """The ``replan`` record from the rest of a stash (``it``, laid out
+        by :meth:`replan`)."""
+        nxt = it.__next__
+        intern = nxt().intern
         groups_rec: List[dict] = []
         rate_by_atom: Dict[int, float] = {}
         demand_by_atom: Dict[int, int] = {}
         num_jobs = 0
-        for gname, supply, queued, elig, rates, allocation in gstate:
-            jobs = plan.job_order.get(gname, [])
-            keys = plan.job_keys.get(gname, [])
+        for _ in range(nxt()):
+            gname = nxt()
+            supply = nxt()
+            queued = nxt()
+            jobs = [j.job_id for j in islice(it, nxt())]
+            keys = [float(k) for k in islice(it, nxt())]
             num_jobs += len(jobs)
+            n = nxt()
+            elig = list(islice(it, n))
             aids = []
-            for a in elig:
+            for a, rate in zip(elig, islice(it, n)):
                 aid = intern(a)
                 aids.append(aid)
-                rate_by_atom[aid] = float(rates.get(a, 0.0))
+                rate_by_atom[aid] = float(rate)
                 demand_by_atom[aid] = demand_by_atom.get(aid, 0) + queued
             aids.sort()
+            n = nxt()
+            held = list(islice(it, n))
             alloc = sorted((intern(a), float(r))
-                           for a, r in allocation.items())
+                           for a, r in zip(held, islice(it, n)))
             groups_rec.append({
                 "group": gname,
                 "supply": supply,
                 "queued_demand": queued,
-                "jobs": [j.job_id for j in jobs],
-                "keys": [float(k) for k in keys],
+                "jobs": jobs,
+                "keys": keys,
                 "atoms": aids,
                 "alloc": {str(i): r for i, r in alloc},
             })
         atoms_rec: List[dict] = []
-        for akey, order in plan.atom_priority.items():
+        for _ in range(nxt()):
+            akey = nxt()
             aid = intern(akey)
             rate = rate_by_atom.get(aid, 0.0)
             dem = demand_by_atom.get(aid, 0)
@@ -329,19 +404,21 @@ class AuditRecorder:
                 "rate": rate,
                 "demand": dem,
                 "pressure": pressure,
-                "order": [g.requirement.name for g in order],
+                "order": [g.requirement.name for g in islice(it, nxt())],
             })
         atoms_rec.sort(key=lambda r: r["id"])
+        dead = list(islice(it, nxt()))
+        uncovered = nxt()
+        nslots = nxt()
         # serialized, not kept as a dict: the nested groups/atoms tables are
         # ~100 containers each, and retaining them live makes every full GC
         # pass traverse the whole buffer (see __init__)
         return _dumps({
             "kind": "replan", "seq": seq, "t": t, "jobs": num_jobs,
             "groups": groups_rec, "atoms": atoms_rec,
-            "dead_atoms": [i for i, s in enumerate(snap)
-                           if s is not None and not s],
-            "uncovered_atoms": sum(1 for s in snap if s is None),
-            "slots": sum(len(s) for s in snap if s),
+            "dead_atoms": dead,
+            "uncovered_atoms": uncovered,
+            "slots": nslots,
         })
 
     def stale_plan(self, now) -> None:

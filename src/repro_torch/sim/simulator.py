@@ -46,6 +46,7 @@ and all grant side effects flow through the shared :meth:`Simulator._grant`.
 """
 from __future__ import annotations
 
+import gc
 import heapq
 import itertools
 import math
@@ -181,7 +182,22 @@ class Simulator:
         Returns True when the simulation is *finished* (all jobs done, the
         event sources are exhausted, or the horizon was crossed); False means
         it paused at the bound and can be resumed (or snapshotted) there.
+
+        The loop runs with the heap made before it frozen (``gc.freeze``):
+        this process holds torch's import-time heap, several times a
+        NumPy-only process's in GC-tracked objects, and a full collection
+        set off inside the loop (objects a long run retains set them off)
+        would scan all of it.  The heap goes back to
+        the collector when the call returns, and with it whatever the
+        caller had frozen: ``gc.unfreeze`` hands back all or nothing.
         """
+        gc.freeze()
+        try:
+            return self._step_until(until)
+        finally:
+            gc.unfreeze()
+
+    def _step_until(self, until: Optional[float]) -> bool:
         self.start()
         heap = self._heap
         heappop = heapq.heappop

@@ -80,6 +80,8 @@ def test_package_has_the_expected_modules():
                  "repro_torch.benchmarks.fig14_fairness",
                  "repro_torch.benchmarks.bench_scenarios",
                  "repro_torch.benchmarks.bench_kernels",
+                 "repro_torch.benchmarks.bench_hotpath",
+                 "repro_torch.benchmarks.regress",
                  "repro_torch.examples", "repro_torch.examples.quickstart",
                  "repro_torch.examples.scenario_tour",
                  "repro_torch.examples.serve_batched",
@@ -94,6 +96,18 @@ def test_package_has_the_expected_modules():
     assert {p.name for p in csrc.glob("*.cu")} == {
         "fedavg_reduce.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
         "quantize.cu"}
+
+
+def test_every_reference_module_has_a_counterpart_but_two():
+    """A diff of the two packages' ``*.py`` lists (``src/repro`` and the
+    reference's ``benchmarks/`` against ``src/repro_torch``): only the
+    jitted fixed point and the jnp oracles are missing, their work done by
+    ``accel/match.py`` + ``accel/kernels/match_segment.py`` and by the
+    ``*_ref`` functions of ``schedule_match.py`` / ``replan_order.py``."""
+    def names(root, prefix=""):
+        return {prefix + str(p.relative_to(root)) for p in root.rglob("*.py")}
+    ref = names(SRC / "repro") | names(ROOT / "benchmarks", "benchmarks/")
+    assert ref - names(PKG) == {"accel/_jax_impl.py", "accel/kernels/ref.py"}
 
 
 def test_importing_every_module_pulls_in_neither_jax_nor_repro():

@@ -91,6 +91,53 @@ def test_audit_is_engine_invariant_with_grant_sampling(tmp_path):
     assert blobs[0] == ref_p.read_bytes()
 
 
+def _recorded(audit, core, sim, kw, dev):
+    """Two VENN runs under one ``AuditRecorder(**kw)``: the first opened by
+    ``begin_run`` and exported mid-session, the second with no run mark."""
+    rec = audit.AuditRecorder(**kw)
+    audit.AUDIT = rec
+    try:
+        out = []
+        for seed, n, rate, days, mark in ((3, 12, 3.0, 4, True),
+                                          (4, 8, 2.0, 2, False)):
+            s = sim.simulator.Simulator(
+                sim.generate_jobs(sim.JobTraceConfig(num_jobs=n, seed=seed)),
+                core.SCHEDULERS["venn"](seed=seed, **dev),
+                sim.PopulationConfig(seed=1000 + seed, base_rate=rate),
+                sim.SimConfig(max_time=days * 24 * 3600.0), **dev)
+            if mark:
+                rec.begin_run(scenario="tiny", seed=seed)
+            s.run()
+            out.append(rec.records)
+        return out, rec.summary()
+    finally:
+        audit.AUDIT = audit.NULL_AUDIT
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"replan_sample": 3}, {"queue_positions": False},
+    {"max_records": 60}, {"grant_sample": 2, "replan_sample": 2}],
+    ids=["default", "replan_sample", "no_queue_positions", "max_records",
+         "both_samples"])
+def test_recorder_options_equal_the_reference(kw):
+    """The port's recorder stashes each replan as one flat tuple (not the
+    reference's refs to the plan): every option still gives the
+    reference's records, a mid-session export and a second unmarked run
+    included."""
+    import repro.core
+    import repro.obs.audit
+    import repro.sim.simulator
+    import repro_torch.core
+    import repro_torch.obs.audit
+    import repro_torch.sim.simulator
+
+    ref = _recorded(repro.obs.audit, repro.core, repro.sim, kw, {})
+    port = _recorded(repro_torch.obs.audit, repro_torch.core, repro_torch.sim,
+                     kw, {"device": "cpu"})
+    assert port == ref
+    assert {r["kind"] for r in ref[0][0]} >= {"run", "replan", "grant"}
+
+
 def test_observability_never_perturbs_the_port():
     _, spec = tiny_pair("blackout_storm")
     for engine in ("python", "array"):

@@ -4,6 +4,7 @@ Inputs are made with NumPy from a seed and handed to both packages — the JAX
 reference ``repro`` and the port ``repro_torch`` — as plain arrays; the port
 runs with ``device="cpu"``.
 """
+import json
 import math
 import sys
 import types
@@ -251,3 +252,112 @@ def client_batches(vocab, T, B, steps, seed=1, client=17):
     data = SyntheticLM(vocab=vocab, seq_len=T, seed=seed)
     bs = [data.batch(B, topic_mix=mix, seed=1000 + s) for s in range(steps)]
     return {k: np.stack([b[k] for b in bs]) for k in bs[0]}
+
+
+# ---- the hot-path slice: both packages' bench_hotpath at a reduced sizing
+
+def shrink_hotpath(monkeypatch, fast, jobs, rate, horizon):
+    """Both packages' ``bench_hotpath`` at a reduced sizing, by the module
+    names it imports only (nothing under ``benchmarks/`` changes): ``FAST``
+    set to ``fast``, ``SCENARIOS`` at one rep each, and ``JobTraceConfig``,
+    ``PopulationConfig`` and ``SimConfig`` wrapped to cap the job count at
+    ``jobs``, the base rate at ``rate`` and the horizon at ``horizon``
+    seconds; and the port's own ``AUDIT_PAIRS`` (the pairs of its audit
+    row's paired median, 60 / 20, after the reference's 5 / 4) cut to
+    4 / 2.  Returns
+    ``(reference module, port module)``."""
+    import benchmarks.bench_hotpath as ref
+    import repro_torch.benchmarks.bench_hotpath as port
+    monkeypatch.setattr(port, "AUDIT_PAIRS", {True: 4, False: 2})
+    for mod in (ref, port):
+        monkeypatch.setattr(mod, "FAST", fast)
+        monkeypatch.setattr(mod, "SCENARIOS",
+                            [row[:4] + (1,) for row in mod.SCENARIOS])
+        trace, pop, sim = mod.JobTraceConfig, mod.PopulationConfig, \
+            mod.SimConfig
+        monkeypatch.setattr(
+            mod, "JobTraceConfig", lambda num_jobs, _c=trace, **kw:
+            _c(num_jobs=min(num_jobs, jobs), **kw))
+        monkeypatch.setattr(
+            mod, "PopulationConfig", lambda base_rate, _c=pop, **kw:
+            _c(base_rate=min(base_rate, rate), **kw))
+        monkeypatch.setattr(
+            mod, "SimConfig", lambda max_time, _c=sim, **kw:
+            _c(max_time=min(max_time, horizon), **kw))
+    return ref, port
+
+
+# NumPy-engine ``degraded_segments`` of the reference serve NaN segments of
+# <= 24 rows without counting them; the port counts them as the reference's
+# ``jax`` engine does (PERF.md §2): masked in a comparison, for that reason
+HOTPATH_REASON_MASKED = ("degraded_segments",)
+
+# the port's own additions to a row (the audit row's paired median), left
+# out of a comparison with the reference, which has no such key
+HOTPATH_PORT_ONLY = ("paired_overhead_frac",)
+
+# the port's history series whose meaning differs from the reference's of
+# the same row: the audit row's gated statistic goes under its own name
+HOTPATH_SERIES = {"audit_overhead": "audit_overhead_paired"}
+
+
+def _hotpath_timing(key: str) -> bool:
+    """A hot-path key whose value is a timing or derived from one (a wall,
+    a rate, a latency, a speedup, a fraction of a wall, a bar met): every
+    ``*_s`` but ``avg_jct_s`` (a JCT), ``*_per_sec``, ``*_us``."""
+    if key == "avg_jct_s":
+        return False
+    return (key.endswith(("_s", "_per_sec", "_us", "_under_60s"))
+            or key.startswith("meets_")
+            or any(w in key for w in ("speedup", "frac", "wall_vs_")))
+
+
+def hotpath_masked(obj):
+    """A hot-path result with its timings (``_hotpath_timing``) and the
+    :data:`HOTPATH_REASON_MASKED` counters replaced by a marker, and the
+    :data:`HOTPATH_PORT_ONLY` keys left out; every other value — JCTs,
+    counts, bytes, flags of identity — kept."""
+    if isinstance(obj, dict):
+        return {k: "<masked>" if _hotpath_timing(k)
+                or k in HOTPATH_REASON_MASKED else hotpath_masked(v)
+                for k, v in obj.items() if k not in HOTPATH_PORT_ONLY}
+    return obj
+
+
+def emitted_names(text):
+    """The first field of each ``name,us_per_call,derived`` row printed."""
+    return [ln.split(",", 1)[0] for ln in text.splitlines()
+            if ln.count(",") >= 2 and not ln.startswith("name,")]
+
+
+def hotpath_both(ref_fn, port_fn, *args):
+    """One row function of each package on ``args`` (the port's with
+    ``device="cpu"``): (reference result, port result, the row names each
+    printed)."""
+    import contextlib
+    import io
+    out = []
+    for fn, kw in ((ref_fn, {}), (port_fn, {"device": "cpu"})):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out.append(fn(*args, **kw))
+        out.append(emitted_names(buf.getvalue()))
+    want, want_rows, got, got_rows = out
+    return want, got, want_rows, got_rows
+
+
+def run_hotpath_main(fn, out_dir, monkeypatch, **kw):
+    """A hot-path ``main`` (``fn(**kw)``) writing into ``out_dir``:
+    (result, printed text)."""
+    import contextlib
+    import io
+    out_dir.mkdir(exist_ok=True)
+    monkeypatch.setenv("REPRO_BENCH_OUT", str(out_dir))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(**kw)
+    return res, buf.getvalue()
+
+
+def read_jsonl(path):
+    return [json.loads(ln) for ln in path.read_text().splitlines()]
