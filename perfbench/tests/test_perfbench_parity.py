@@ -1,0 +1,91 @@
+"""The benchmark's frozen generators against the program's, and its plain
+reference against the program's array drain (``device="cpu"``), on a few
+simulated hours of the configuration."""
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+BENCH = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(BENCH), str(BENCH.parent / "src")]
+
+import check  # noqa: E402
+import program  # noqa: E402
+from gen import checkins as gen_checkins  # noqa: E402
+from gen import jobs as gen_jobs  # noqa: E402
+from reference import sim as reference  # noqa: E402
+
+CONFIG = "venn-paper-even-j50"
+
+
+def _cfg(name):
+    return json.loads((BENCH / "configs" / f"{name}.json").read_text())
+
+
+@pytest.mark.parametrize("seed", [1, 20231208])
+def test_job_generator_draws_the_programs_trace(seed):
+    name = CONFIG
+    from repro_torch.sim.devices import REQUIREMENT_CLASSES
+    from repro_torch.sim.traces import JobTraceConfig, generate_jobs
+    p = _cfg(name)["jobs"]
+    mine = gen_jobs.generate(p, seed, len(REQUIREMENT_CLASSES))
+    theirs = generate_jobs(JobTraceConfig(
+        num_jobs=p["num_jobs"], mean_interarrival=p["mean_interarrival"],
+        workload=p["workload"], seed=seed))
+    if p["pin"] is not None:
+        for j in theirs:
+            j.requirement = REQUIREMENT_CLASSES[p["pin"]]
+    assert mine["demand"].tolist() == [j.demand_per_round for j in theirs]
+    assert mine["rounds"].tolist() == [j.total_rounds for j in theirs]
+    assert mine["arrival"].tolist() == [j.arrival_time for j in theirs]
+    assert mine["task_mean"].tolist() == [j.task_time_mean for j in theirs]
+    assert mine["deadline"].tolist() == [j.deadline for j in theirs]
+    names = [r["name"] for r in _cfg(name)["requirements"]]
+    assert [names[i] for i in mine["requirement"].tolist()] == \
+        [j.requirement.name for j in theirs]
+
+
+@pytest.mark.parametrize("seed,horizon", [(4000000321, 40000.0),
+                                          (17, 90000.0)])
+def test_checkin_sampler_draws_the_programs_chunks(seed, horizon):
+    name = CONFIG
+    from repro_torch.sim.devices import (DeviceGenerator, GeneratorStream,
+                                         PopulationConfig)
+    p = _cfg(name)["population"]
+    mine = gen_checkins.generate(p, seed, horizon)
+    keys = ("base_rate", "diurnal_amplitude", "diurnal_phase", "cpu_med",
+            "cpu_sigma", "mem_med", "mem_sigma", "cap_corr",
+            "speed_exponent", "speed_noise_sigma", "fail_base",
+            "fail_slow_boost")
+    gen = DeviceGenerator(PopulationConfig(seed=seed,
+                                           **{k: p[k] for k in keys}))
+    theirs = GeneratorStream(gen, horizon)
+    for i in range(mine.num_chunks()):
+        ck = theirs.next_chunk()
+        for f, a in mine.chunk(i).items():
+            assert np.array_equal(a, getattr(ck, f)), (i, f)
+    assert theirs.next_chunk() is None
+
+
+@pytest.mark.parametrize("seed,horizon", [(3000000007, 10800.0),
+                                          (2718281829, 21600.0)])
+def test_reference_agrees_with_the_array_drain(seed, horizon):
+    cfg = _cfg(CONFIG)
+    jobs = gen_jobs.generate(cfg["jobs"], cfg["jobs"]["trace_seed"], 4)
+    stream = gen_checkins.generate(cfg["population"], seed, horizon)
+    ep = program.Episode(program.port(), cfg, jobs, stream, seed, horizon,
+                         "cpu")
+    t, done = 0.0, False
+    while not done:
+        t = min(t + 60.0, horizon)
+        done = ep.step_until(t) or t >= horizon
+    ans = ep.answers()
+    ref = reference.run(cfg, jobs, stream, seed, horizon, horizon)
+    got = check.compare(ans, ref, stream.arrays["times"],
+                        [r["name"] for r in cfg["requirements"]])
+    assert got["grants_compared"] > 0 and got["rounds_compared"] > 0
+    assert {k: got[k] for k in check.LIMITS} == \
+        {"atom_mismatch": 0, "grant_mismatch": 0, "round_mismatch": 0}
+    assert check.verdict(got)
