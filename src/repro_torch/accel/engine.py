@@ -375,7 +375,6 @@ class ArrayMatchEngine:
         st = self.state
         if st is None or st.token != token:
             tr = _obstrace.TRACER
-            reg = _obsmetrics.REGISTRY
             dirty = None
             if st is not None and self.delta_enabled:
                 delta = getattr(sched, "match_delta", None)
@@ -396,8 +395,6 @@ class ArrayMatchEngine:
                 if tok is not None:
                     tr.end(tok, atoms=len(dirty), requests=len(st.requests))
                 self.patches += 1
-                if reg.enabled:
-                    reg.counter("accel.state_patches").inc()
                 if self.check_deltas:
                     st.verify_against(sched)
             else:
@@ -416,8 +413,6 @@ class ArrayMatchEngine:
                            requests=len(st.requests))
                 self.rebuilds += 1
                 self._rebuilt_requests = len(st.requests)
-                if reg.enabled:
-                    reg.counter("accel.state_rebuilds").inc()
             # NOTE: classify() can intern new atom ids without a version
             # bump, so callers must re-check num_atoms per segment —
             # miss_free alone only certifies the id space seen at build

@@ -57,6 +57,9 @@ class BaseScheduler:
         # bumps whenever the pending order (hence per-atom candidate lists)
         # changes — the array engine's cue to rebuild its state mirror
         self.order_version = 0
+        # wall time in replans, kept while observability is on (VENN's
+        # _reschedule; the baselines have no replan)
+        self.replan_seconds = 0.0
 
     # ---- simulator hooks --------------------------------------------------
 

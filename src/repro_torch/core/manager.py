@@ -395,7 +395,8 @@ class VennScheduler(BaseScheduler):
         # tier decisions, plan lowering) so traces show where replans go
         tr = _obstrace.TRACER
         reg = _obsmetrics.REGISTRY
-        t_replan = time.perf_counter() if reg.enabled else 0.0
+        timed = tr.enabled or reg.enabled
+        t_replan = time.perf_counter() if timed else 0.0
         tok = tr.begin("venn.replan", cat="sched", sim_t=now) \
             if tr.enabled else None
         sub = tr.begin("venn.replan.supply", cat="sched") \
@@ -506,10 +507,12 @@ class VennScheduler(BaseScheduler):
             aud.replan(now, self)
         if tok is not None:
             tr.end(tok, jobs=num_jobs, groups=len(active_groups))
+        if timed:
+            dt = time.perf_counter() - t_replan
+            self.replan_seconds += dt
         if reg.enabled:
             reg.counter("venn.replans").inc()
-            reg.histogram("venn.replan_wall_s", lo=1e-7, hi=1e2).record(
-                time.perf_counter() - t_replan)
+            reg.histogram("venn.replan_wall_s", lo=1e-7, hi=1e2).record(dt)
             if eng is not None:
                 # incremental-reuse telemetry: how much of this replan was
                 # served from caches vs recomputed (order/lowered/merged)

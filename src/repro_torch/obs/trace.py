@@ -16,7 +16,8 @@ keeps the hot path free:
   enabling tracing never changes scheduling outcomes — ``SimMetrics`` stays
   bit-identical (enforced by ``tests/test_obs.py``).
 
-Timestamps use ``time.perf_counter`` (monotonic), zeroed at tracer creation.
+Timestamps use ``time.perf_counter`` (monotonic), zeroed at tracer creation
+(``Tracer.t0``, which the export's ``otherData`` gives with the clock's name).
 ``begin``/``end`` returns an explicit token so spans can cross ``return``
 statements without a ``with`` block; ``span`` is the context-manager form.
 An event cap (``max_events``) bounds memory on pathological runs — overflow
@@ -88,6 +89,9 @@ class NullTracer:
     def us(self, t: float) -> float:
         return 0.0
 
+    def records(self, cat: str) -> bool:
+        return False
+
 
 NULL_TRACER = NullTracer()
 
@@ -127,7 +131,10 @@ class Tracer:
                  categories=None,
                  clock=time.perf_counter):
         self._clock = clock
-        self._t0 = clock()
+        # the origin of every timestamp: ts (us) = (clock() - t0) * 1e6,
+        # written into the export so a trace lines up with another one
+        # taken on the same clock (a torch.profiler trace, say)
+        self.t0 = clock()
         self.pid = os.getpid()
         self.events: List[dict] = []
         self.max_events = max_events
@@ -136,15 +143,26 @@ class Tracer:
 
     # ------------------------------------------------------------- clocks
 
+    @property
+    def _t0(self) -> float:
+        """The origin under its former private name (``perfbench/tracing.py``
+        reads it)."""
+        return self.t0
+
     def now_us(self) -> float:
         """Microseconds since tracer creation (monotonic)."""
-        return (self._clock() - self._t0) * 1e6
+        return (self._clock() - self.t0) * 1e6
 
     def us(self, t: float) -> float:
         """Convert a raw ``perf_counter`` timestamp to tracer microseconds."""
-        return (t - self._t0) * 1e6
+        return (t - self.t0) * 1e6
 
     # -------------------------------------------------------------- spans
+
+    def records(self, cat: str) -> bool:
+        """Whether spans of category ``cat`` are recorded (a site may skip
+        work that only feeds them)."""
+        return self.categories is None or cat in self.categories
 
     def span(self, name: str, cat: str = "repro", **args) -> _Span:
         return _Span(self, name, cat, args)
@@ -208,7 +226,8 @@ class Tracer:
             "traceEvents": list(self.events),
             "displayTimeUnit": "ms",
             "otherData": {"tool": "repro_torch.obs", "pid": self.pid,
-                          "dropped_events": self.dropped},
+                          "dropped_events": self.dropped,
+                          "clock": self._clock.__name__, "t0_s": self.t0},
         }
 
     def write(self, path: str) -> str:

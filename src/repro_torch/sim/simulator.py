@@ -68,9 +68,20 @@ from .metrics import RoundRecord, SimMetrics
 
 JOB_ARRIVAL, RESPONSE, DEADLINE, FAULT = 0, 1, 2, 3
 
-# control-event span names, indexed by event kind (repro_torch.obs taxonomy)
-_EVENT_SPAN = ("sim.event.arrival", "sim.event.response",
-               "sim.event.deadline", "sim.event.fault")
+# control-event kinds, indexed by event kind; their spans are
+# ``sim.event.<kind>`` (repro_torch.obs taxonomy)
+EVENT_KINDS = ("arrival", "response", "deadline", "fault")
+_EVENT_SPAN = tuple("sim.event." + k for k in EVENT_KINDS)
+
+# The drain's parts (:meth:`Simulator.drain_parts`): counts, and self times
+# that do not overlap one another or the stream, matcher, mirror and replan
+# stopwatches.  Kept only while the metrics registry is on or the tracer
+# records category ``sim``; each is mirrored into the registry as the
+# counter ``sim.<name>``.
+_PARTS = ("step_seconds", "grants", "grant_seconds", "scalar_segments",
+          "scalar_rows", "head_misses", "scalar_seconds", "vector_segments",
+          "vector_rows", "idle_skips", "idle_rows", "idle_seconds",
+          "drain_segments")
 
 
 @dataclass
@@ -148,6 +159,23 @@ class Simulator:
         #                               check-in matching loop, per engine)
         self.stream_seconds = 0.0     # wall time producing + classifying
         #                               chunks (shared, engine-independent)
+        # ---- the drain's parts (_PARTS), while metrics or sim spans are on
+        self._clocked = False         # this step_until call keeps them
+        self.step_seconds = 0.0       # wall time inside step_until
+        self.event_counts = [0] * len(EVENT_KINDS)     # control events, and
+        self.event_seconds = [0.0] * len(EVENT_KINDS)  # their handling, by kind
+        self.grants = 0               # _grant calls, and their wall time
+        self.grant_seconds = 0.0
+        self.scalar_segments = 0      # array drain's scalar route: segments
+        self.scalar_rows = 0          # of _drain_array_scalar, their rows,
+        self.head_misses = 0          # head-miss checkins, and the self time
+        self.scalar_seconds = 0.0     # of both (less grants and replans)
+        self.vector_segments = 0      # segments the matcher decided (one
+        self.vector_rows = 0          # engine.match each), and their rows
+        self.idle_skips = 0           # idle skips, the rows they skipped,
+        self.idle_rows = 0            # and their self time (less the
+        self.idle_seconds = 0.0       # chunk loads inside them)
+        self.drain_segments = 0       # engine.prepare calls
 
     # ------------------------------------------------------------------ api
 
@@ -198,6 +226,29 @@ class Simulator:
             gc.unfreeze()
 
     def _step_until(self, until: Optional[float]) -> bool:
+        # observability globals, fetched once per step_until call (enable
+        # observability before driving the loop — obs.session around run).
+        # Disabled cost inside the loop: a cached-bool test or two a drain
+        # segment, grant and control event.  The drain's parts are kept
+        # when they have a reader: the registry, or a tracer that records
+        # the sim spans (a tracer filtered to other categories skips them)
+        tr = _obstrace.TRACER
+        reg = _obsmetrics.REGISTRY
+        clocked = self._clocked = reg.enabled or tr.records("sim")
+        if not clocked:
+            return self._loop(until, tr, reg, False)
+        before = self.drain_parts() if reg.enabled else None
+        t0 = time.perf_counter()
+        try:
+            return self._loop(until, tr, reg, True)
+        finally:
+            self.step_seconds += time.perf_counter() - t0
+            if before is not None:
+                for k, v in self.drain_parts().items():
+                    if v != before[k]:
+                        reg.counter("sim." + k).inc(v - before[k])
+
+    def _loop(self, until: Optional[float], tr, reg, clocked: bool) -> bool:
         self.start()
         heap = self._heap
         heappop = heapq.heappop
@@ -206,12 +257,9 @@ class Simulator:
         n_jobs = len(self.jobs)
         drain = self._drain_array if self.engine is not None \
             else self._drain_python
+        handle = (self._on_job_arrival, self._pop_response,   # by event kind
+                  self._on_deadline, self._on_blackout)
         perf = time.perf_counter
-        # observability globals, fetched once per step_until call (enable
-        # observability before driving the loop — obs.session around run).
-        # Disabled cost inside the loop: two cached-bool tests per iteration.
-        tr = _obstrace.TRACER
-        reg = _obsmetrics.REGISTRY
         obs_on = tr.enabled or reg.enabled
         engine_name = "array" if self.engine is not None else "python"
         while self._done < n_jobs:
@@ -241,26 +289,48 @@ class Simulator:
                 return bound >= max_time
             # ---- one control event (peek first: an event past the bound
             # stays queued so a paused simulation loses nothing) ----
-            if not heap:
+            if clocked:
+                te = perf()                 # the event's stopwatch, its pop
+            if not heap:                    # from the heap included
                 return True
             t = heap[0][0]
             if t > bound:
                 return t > max_time
             _, _, kind, payload = heappop(heap)
             self.now = t
-            tok = tr.begin(_EVENT_SPAN[kind], cat="sim", sim_t=t) \
-                if tr.enabled else None
-            if kind == JOB_ARRIVAL:
-                self._on_job_arrival(payload)           # type: ignore[arg-type]
-            elif kind == RESPONSE:
-                self._pop_response(payload)             # type: ignore[arg-type]
-            elif kind == DEADLINE:
-                self._on_deadline(payload)              # type: ignore[arg-type]
-            elif kind == FAULT:
-                self._on_blackout(payload)              # type: ignore[arg-type]
-            if tok is not None:
-                tr.end(tok)
+            if not clocked:
+                handle[kind](payload)       # type: ignore[operator]
+                continue
+            handle[kind](payload)           # type: ignore[operator]
+            # the span is recorded from the stopwatch's own clock reads, so
+            # recording it adds nothing to the event's seconds
+            dt = perf() - te
+            self.event_counts[kind] += 1
+            self.event_seconds[kind] += dt
+            if tr.enabled:
+                tr.complete(_EVENT_SPAN[kind], tr.us(te), dt * 1e6,
+                            cat="sim", sim_t=t)
         return True
+
+    def drain_parts(self) -> dict:
+        """The drain's parts (counted and timed while the metrics registry
+        is on or the tracer records category ``sim``):
+        ``_PARTS`` by name, and per control-event kind ``events.<kind>`` and
+        ``event_seconds.<kind>``.  The self times (``*_seconds``) do not
+        overlap one another, the stream (``stream_seconds``), the matcher
+        and mirror (the engine's ``matcher_s``, ``rebuild_s``, ``patch_s``)
+        or the replans (the scheduler's ``replan_seconds``).  What the array
+        drain's ``drain_seconds`` holds besides them is its segment
+        bookkeeping: ``engine.prepare`` less replan and mirror, the miss
+        scan, the segment bounds, the matcher's host work around its call;
+        what ``step_seconds`` holds besides the drain and the events is the
+        loop's own."""
+        d = {k: getattr(self, k) for k in _PARTS}
+        for kind, n, sec in zip(EVENT_KINDS, self.event_counts,
+                                self.event_seconds):
+            d["events." + kind] = n
+            d["event_seconds." + kind] = sec
+        return d
 
     def finish(self) -> SimMetrics:
         """Run to completion and finalize metrics (idempotent)."""
@@ -390,6 +460,8 @@ class Simulator:
         index = sched.index
         grant = self._grant
         inf = math.inf
+        clocked = self._clocked
+        perf = time.perf_counter
         while True:
             if self._chunk is None:
                 return False
@@ -409,7 +481,12 @@ class Simulator:
             if dev_t > bound:
                 return True                     # crossed the bound: stop
             if not self._open:
+                if clocked:
+                    t = perf()
+                    mark = (self.stream_seconds, self.checkins_skipped)
                 self._skip_idle(min(heap_t, bound))
+                if clocked:
+                    self._note_idle(t, mark)
                 continue
             ck = self._chunk
             seg_bound = heap_t if heap_t < bound else bound
@@ -419,6 +496,8 @@ class Simulator:
             # scheduler's lazy replan runs at the first check-in's time,
             # exactly when the scalar path's first checkin would trigger it
             state = engine.prepare(sched, dev_t)
+            if clocked:
+                self.drain_segments += 1
             aids_np = ck.atom_ids
             # classify() interns new atom ids for freshly realized capability
             # combinations WITHOUT bumping index.version, so miss-freedom
@@ -431,6 +510,9 @@ class Simulator:
             if miss == 0:
                 # uncovered atom at the segment head: one scalar checkin,
                 # which replans mid-drain exactly like the scalar path
+                if clocked:
+                    t = perf()
+                    mark = (self.grant_seconds, sched.replan_seconds)
                 i = cursor
                 speed = self._speed[i]
                 req = sched.checkin(self._aids[i], self._cpu[i],
@@ -442,11 +524,21 @@ class Simulator:
                 if not (req is None or req.granted >= req.demand
                         or req.complete_time is not None):
                     grant(req, i, dev_t, speed)
+                if clocked:
+                    self.head_misses += 1
+                    self._note_scalar(t, mark)
                 continue
             if miss > 0:
                 hi = cursor + miss
             if hi - cursor < SCALAR_SEG_ROWS:
+                if clocked:
+                    t = perf()
+                    mark = (self.grant_seconds, sched.replan_seconds)
                 self._drain_array_scalar(state, cursor, hi, heap_t)
+                if clocked:
+                    self.scalar_segments += 1
+                    self.scalar_rows += self._cursor - cursor
+                    self._note_scalar(t, mark)
                 continue
             try:
                 res = engine.match(aids_np[cursor:hi], ck.speed[cursor:hi],
@@ -481,6 +573,24 @@ class Simulator:
             self._cursor = seg_end
             self.checkins_seen += seg_end - cursor
             self.now = times[seg_end - 1]
+            if clocked:
+                self.vector_segments += 1
+                self.vector_rows += seg_end - cursor
+
+    def _note_idle(self, t0: float, mark: tuple) -> None:
+        """Count one idle skip begun at ``t0``; ``mark`` holds the stream
+        seconds and skipped check-ins before it."""
+        self.idle_skips += 1
+        self.idle_rows += self.checkins_skipped - mark[1]
+        self.idle_seconds += time.perf_counter() - t0 \
+            - (self.stream_seconds - mark[0])
+
+    def _note_scalar(self, t0: float, mark: tuple) -> None:
+        """Add the scalar route's self time since ``t0``: ``mark`` holds the
+        grant and replan seconds before it."""
+        self.scalar_seconds += time.perf_counter() - t0 \
+            - (self.grant_seconds - mark[0]) \
+            - (self.sched.replan_seconds - mark[1])
 
     def _drain_array_scalar(self, state, cursor: int, hi: int,
                             heap_t: float) -> None:
@@ -536,6 +646,9 @@ class Simulator:
         materialize the ``Device``, arm its response, handle request fill.
         The single place grant side effects happen — shared by both drain
         engines.  Returns True iff the request just filled."""
+        clocked = self._clocked
+        if clocked:
+            t0 = time.perf_counter()
         if not req.granted:
             # flight recorder: grant sequences are bit-identical across
             # engines, so this (and not the drain loop) is where the grant
@@ -589,6 +702,9 @@ class Simulator:
                                         next(self._seq), DEADLINE, req))
         if self.grant_log is not None:
             self.grant_log.append((dev_t, job.job_id, req.round_index))
+        if clocked:
+            self.grants += 1
+            self.grant_seconds += time.perf_counter() - t0
         return filled
 
     def _push(self, t: float, kind: int, payload: object) -> None:

@@ -1,0 +1,137 @@
+"""The drain's parts: counters and self times inside ``Simulator.step_until``.
+
+A small VENN simulation on the array drain (``device="cpu"``) runs with
+observability on and off.  With it on (the registry, or a tracer that
+records ``sim``), the counts must add up: grants to the grant log, the
+routes' rows to the check-ins examined, the control events by kind to the
+events handled, each mirrored into the registry and, for events, into the
+``sim.event.*`` spans.  The self times must not overlap: the drain's
+seconds less every named part leave a positive remainder (its segment
+bookkeeping), and the step's own stopwatch agrees with the caller's clock.
+With it off, or with a tracer that records other categories only, every
+part reads 0, and the grant log and ``summary()`` are bit-identical either
+way.
+"""
+import time
+
+import pytest
+
+from repro_torch import obs
+from repro_torch.core import SCHEDULERS
+from repro_torch.obs.trace import Tracer
+from repro_torch.sim import (JobTraceConfig, PopulationConfig, SimConfig,
+                             generate_jobs)
+from repro_torch.sim.simulator import EVENT_KINDS, Simulator
+import torch_parity  # noqa: F401  (pins torch to one thread)
+
+HANDLERS = ("_on_job_arrival", "_pop_response", "_on_deadline",
+            "_on_blackout")
+
+
+def _sim():
+    jobs = generate_jobs(JobTraceConfig(num_jobs=6, seed=3, demand_lo=20,
+                                        demand_hi=200, rounds_lo=2,
+                                        rounds_hi=5))
+    return Simulator(jobs, SCHEDULERS["venn"](seed=1, device="cpu"),
+                     PopulationConfig(seed=9, base_rate=3.0),
+                     SimConfig(max_time=4 * 86400.0), engine="array",
+                     record_grants=True, device="cpu")
+
+
+def _drive(sim, handled=None):
+    """Run to the end in 10-minute slices; the caller's wall time."""
+    if handled is not None:
+        for kind, name in zip(EVENT_KINDS, HANDLERS):
+            inner = getattr(sim, name)
+
+            def counted(payload, inner=inner, kind=kind):
+                handled[kind] += 1
+                return inner(payload)
+            setattr(sim, name, counted)
+    wall, t, done = 0.0, 0.0, False
+    while not done:
+        t += 600.0
+        w = time.perf_counter()
+        done = sim.step_until(t)
+        wall += time.perf_counter() - w
+    sim.finish()
+    return wall
+
+
+@pytest.fixture(scope="module")
+def traced():
+    sim = _sim()
+    handled = dict.fromkeys(EVENT_KINDS, 0)
+    with obs.session(tracing=True, metrics=True) as (tr, reg):
+        wall = _drive(sim, handled)
+        spans = [e for e in tr.events if e["name"].startswith("sim.event.")]
+        counters = {k: reg.counter(k).value for k in
+                    ["sim." + k for k in sim.drain_parts()]}
+    return sim, handled, wall, spans, counters
+
+
+def test_counts_add_up(traced):
+    sim, handled, _, spans, counters = traced
+    p = sim.drain_parts()
+    assert p["grants"] == len(sim.grant_log) > 0
+    assert p["vector_rows"] + p["scalar_rows"] + p["head_misses"] \
+        == sim.checkins_seen
+    assert p["vector_segments"] > 0 and p["scalar_segments"] > 0
+    assert p["drain_segments"] >= p["vector_segments"] \
+        + p["scalar_segments"] + p["head_misses"]
+    assert p["idle_rows"] <= sim.checkins_skipped
+    assert p["idle_skips"] > 0
+    for kind in EVENT_KINDS:
+        n = sum(1 for e in spans if e["name"] == "sim.event." + kind)
+        assert p["events." + kind] == handled[kind] == n, kind
+        dur = sum(e["dur"] for e in spans if e["name"] == "sim.event." + kind)
+        assert dur / 1e6 == pytest.approx(p["event_seconds." + kind],
+                                          rel=1e-9, abs=1e-9)
+    assert handled["arrival"] == len(sim.jobs)
+    assert {"sim." + k: v for k, v in p.items()} == pytest.approx(counters)
+
+
+def test_self_times_do_not_overlap(traced):
+    sim, _, wall, _, _ = traced
+    p, eng = sim.drain_parts(), sim.engine
+    named = {"stream": sim.stream_seconds, "matcher": eng.matcher_s,
+             "mirror": eng.rebuild_s + eng.patch_s,
+             "replan": sim.sched.replan_seconds,
+             "scalar": p["scalar_seconds"], "grants": p["grant_seconds"],
+             "idle": p["idle_seconds"]}
+    assert all(v > 0 for v in named.values()), named
+    bookkeeping = sim.drain_seconds - sum(named.values())
+    assert bookkeeping > 0
+    events = sum(p["event_seconds." + k] for k in EVENT_KINDS)
+    loop_own = p["step_seconds"] - sim.drain_seconds - events
+    assert loop_own > 0
+    parts = sum(named.values()) + bookkeeping + events + loop_own
+    assert parts == pytest.approx(wall, rel=0.02)
+
+
+@pytest.mark.parametrize("categories", [None, {"sched", "accel"}])
+def test_without_a_reader_no_parts_are_kept_and_no_outcome_changes(
+        traced, categories):
+    """Observability off, or a tracer that records other categories than
+    ``sim`` (the benchmark's traced capture) and no registry."""
+    on = traced[0]
+    off = _sim()
+    if categories is None:
+        _drive(off)
+        assert off.sched.replan_seconds == 0
+    else:
+        with obs.session(tracing=True, metrics=False, categories=categories):
+            _drive(off)
+    assert all(v == 0 for v in off.drain_parts().values())
+    assert off.grant_log == on.grant_log
+    assert repr(off.metrics.summary()) == repr(on.metrics.summary())
+    assert off.metrics.jcts == on.metrics.jcts
+
+
+def test_trace_export_gives_its_clock_and_origin():
+    tr = Tracer()
+    t = time.perf_counter()
+    assert tr.t0 <= t and tr._t0 == tr.t0
+    assert tr.us(t) == pytest.approx((t - tr.t0) * 1e6)
+    other = tr.export()["otherData"]
+    assert other["clock"] == "perf_counter" and other["t0_s"] == tr.t0
