@@ -37,9 +37,10 @@ interchangeable **drain engines** then consume the merged stream:
 * ``engine="array"`` — the :mod:`repro_torch.accel` engine: whole drain segments
   (check-in runs between control events) are matched in one vectorized call
   against a struct-of-arrays mirror of the scheduler state, and only granted
-  rows touch Python objects.  Grant sequences and metrics are bit-identical
-  to the scalar path; uncovered atoms fall back to one scalar ``checkin``
-  (the MISS/replan protocol).
+  rows touch Python objects; short runs take a scalar route, which handles
+  in place the responses that cannot complete a round.  Grant sequences and
+  metrics are bit-identical to the scalar path; uncovered atoms fall back
+  to one scalar ``checkin`` (the MISS/replan protocol).
 
 Either way a ``Device`` object is only materialized for granted check-ins,
 and all grant side effects flow through the shared :meth:`Simulator._grant`.
@@ -56,6 +57,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..accel.engine import NeedWiderExport, SCALAR_SEG_ROWS, SEG_ROWS
 from ..core.baselines import BaseScheduler
 from ..core.types import Device, Job, JobRequest, JobStatus
 from ..obs import audit as _obsaudit
@@ -81,7 +83,14 @@ _EVENT_SPAN = tuple("sim.event." + k for k in EVENT_KINDS)
 _PARTS = ("step_seconds", "grants", "grant_seconds", "scalar_segments",
           "scalar_rows", "head_misses", "scalar_seconds", "vector_segments",
           "vector_rows", "idle_skips", "idle_rows", "idle_seconds",
-          "drain_segments")
+          "drain_segments", "inline_events")
+
+
+def _round_complete(req: JobRequest, more: int = 0) -> bool:
+    """Whether ``req``'s round is complete once ``more`` responses beyond
+    those counted have arrived: quorum reached and the request filled."""
+    return req.responses + more >= req.quorum \
+        and req.alloc_complete_time is not None
 
 
 @dataclass
@@ -176,6 +185,11 @@ class Simulator:
         self.idle_rows = 0            # and their self time (less the
         self.idle_seconds = 0.0       # chunk loads inside them)
         self.drain_segments = 0       # engine.prepare calls
+        self.inline_events = 0        # control events the array drain
+        #                               handled in place (_inline_events)
+        self.inline_seconds = 0.0     # their wall time, always kept: it is
+        #                               taken off the drain's (events are
+        #                               not drain time, wherever handled)
 
     # ------------------------------------------------------------------ api
 
@@ -266,8 +280,9 @@ class Simulator:
             # ---- drain device check-ins until the heap takes priority ----
             t0 = perf()
             seen0 = self.checkins_seen
+            inline0 = self.inline_seconds
             stopped = drain(bound)
-            dt = perf() - t0
+            dt = perf() - t0 - (self.inline_seconds - inline0)
             self.drain_seconds += dt
             if obs_on:
                 rows = self.checkins_seen - seen0
@@ -324,7 +339,9 @@ class Simulator:
         bookkeeping: ``engine.prepare`` less replan and mirror, the miss
         scan, the segment bounds, the matcher's host work around its call;
         what ``step_seconds`` holds besides the drain and the events is the
-        loop's own."""
+        loop's own.  ``inline_events`` counts the events the array drain
+        handled in place (among ``events.response``); their time is in
+        ``event_seconds.response`` and not in ``drain_seconds``."""
         d = {k: getattr(self, k) for k in _PARTS}
         for kind, n, sec in zip(EVENT_KINDS, self.event_counts,
                                 self.event_seconds):
@@ -451,9 +468,10 @@ class Simulator:
         check-ins in one :mod:`repro_torch.accel` call, then apply grants in time
         order, truncating exactly where a newly armed control event (or a
         fill that empties ``_open``) would have preempted the scalar loop.
-        Outcomes are bit-identical to ``_drain_python``."""
-        from ..accel.engine import (NeedWiderExport, SCALAR_SEG_ROWS,
-                                    SEG_ROWS)
+        A control event that cannot change what the drain has cached (a
+        RESPONSE that cannot complete its round, :meth:`_inert`) is handled
+        in place, between two rows, instead of in ``_loop``.  Outcomes are
+        bit-identical to ``_drain_python``."""
         heap = self._heap
         engine = self.engine
         sched = self.sched
@@ -476,8 +494,10 @@ class Simulator:
                 continue
             heap_t = heap[0][0] if heap else inf
             dev_t = times[cursor]
-            if heap_t < dev_t:
-                return False                    # control event first
+            if heap_t < dev_t:                  # control events first: the
+                if dev_t > bound or not self._inline_events(dev_t):
+                    return False                # loop takes one that is not
+                continue                        # inert; this loop re-prepares
             if dev_t > bound:
                 return True                     # crossed the bound: stop
             if not self._open:
@@ -512,7 +532,8 @@ class Simulator:
                 # which replans mid-drain exactly like the scalar path
                 if clocked:
                     t = perf()
-                    mark = (self.grant_seconds, sched.replan_seconds)
+                    mark = (self.grant_seconds, sched.replan_seconds,
+                            self.inline_seconds)
                 i = cursor
                 speed = self._speed[i]
                 req = sched.checkin(self._aids[i], self._cpu[i],
@@ -533,8 +554,9 @@ class Simulator:
             if hi - cursor < SCALAR_SEG_ROWS:
                 if clocked:
                     t = perf()
-                    mark = (self.grant_seconds, sched.replan_seconds)
-                self._drain_array_scalar(state, cursor, hi, heap_t)
+                    mark = (self.grant_seconds, sched.replan_seconds,
+                            self.inline_seconds)
+                self._drain_array_scalar(state, cursor, heap_t, bound)
                 if clocked:
                     self.scalar_segments += 1
                     self.scalar_rows += self._cursor - cursor
@@ -587,13 +609,14 @@ class Simulator:
 
     def _note_scalar(self, t0: float, mark: tuple) -> None:
         """Add the scalar route's self time since ``t0``: ``mark`` holds the
-        grant and replan seconds before it."""
+        grant, replan and inline-event seconds before it."""
         self.scalar_seconds += time.perf_counter() - t0 \
             - (self.grant_seconds - mark[0]) \
-            - (self.sched.replan_seconds - mark[1])
+            - (self.sched.replan_seconds - mark[1]) \
+            - (self.inline_seconds - mark[2])
 
-    def _drain_array_scalar(self, state, cursor: int, hi: int,
-                            heap_t: float) -> None:
+    def _drain_array_scalar(self, state, cursor: int, heap_t: float,
+                            bound: float) -> None:
         """Scalar tail of the array drain for segments too small to amortize
         a vectorized match: per-row ``checkin`` with the state's candidate
         bitmap standing in for the scheduler's liveness list (same dead-atom
@@ -601,24 +624,48 @@ class Simulator:
         bounded out by the MISS scan).  Grants are mirrored into the state so
         later vectorized segments stay exact; if a grant surfaces a request
         the state does not know (a mid-row replan), the state is invalidated
-        and the caller's next ``prepare`` rebuilds it."""
+        and the caller's next ``prepare`` rebuilds it.
+
+        A control event armed before the next row is handled here when it is
+        inert (:meth:`_inert`), and the route goes on past the segment's
+        bound to the next rows; the first event that is not inert ends
+        the route, as do the first row past ``bound``, the chunk's end, a
+        fill that empties ``_open``, and the first row whose atom the state
+        does not cover (a MISS, bounded out of the segment and met only past
+        it: the caller's head-miss path takes it).  After inline events the
+        route also ends where the rows before the next event or ``bound``
+        fill a vectorized segment, so that the caller routes them to the
+        matcher as it would have after handling those events itself."""
         heap = self._heap
         sched = self.sched
         grant = self._grant
         times, aids = self._times, self._aids
         cpu, mem, spd = self._cpu, self._mem, self._speed
         has_cand = state.has_cand_list
+        covered = state.covered.tolist()
         n_cov = len(has_cand)
-        top = heap_t
+        n_times = len(times)
+        # rows after stop_t (the heap's top, or bound) wait for an event
+        # or end the route
+        stop_t = heap_t if heap_t < bound else bound
         i = cursor
-        while i < hi:
+        while i < n_times:
             t_i = times[i]
-            if top < t_i:
-                break                           # an armed event preempts
+            if t_i > stop_t:
+                if t_i > bound or not self._inline_events(t_i, state.token):
+                    break                       # past the bound, or an
+                #                                 event the loop must handle
+                top = heap[0][0] if heap else math.inf
+                stop_t = top if top < bound else bound
+                j = i + SCALAR_SEG_ROWS - 1
+                if j < n_times and times[j] <= stop_t:
+                    break                       # a run for the matcher
             aid = aids[i]
-            if aid < n_cov and not has_cand[aid]:
-                i += 1                          # dead atom (state.covered
-                continue                        # holds: miss was bounded out)
+            if aid >= n_cov or not has_cand[aid]:
+                if aid >= n_cov or not covered[aid]:
+                    break                       # a MISS
+                i += 1                          # dead atom
+                continue
             speed = spd[i]
             req = sched.checkin(aid, cpu[i], mem[i], speed, t_i)
             i += 1
@@ -633,10 +680,68 @@ class Simulator:
             state.consume(rix)
             if filled and not self._open:
                 break
-            top = heap[0][0]
+            top = heap[0][0]                    # a grant only pushes
+            if top < stop_t:
+                stop_t = top
         self._cursor = i
         self.checkins_seen += i - cursor
-        self.now = times[i - 1]
+        if times[i - 1] > self.now:             # the last row came after
+            self.now = times[i - 1]             # the last inline event
+
+    def _inert(self, t: float, kind: int, payload) -> bool:
+        """Whether the control event ``(t, kind, payload)``, handled now,
+        leaves all that the array drain has cached as it is: the plan, the
+        atom index, ``_open``, the engine's state and the liveness bitmap.
+        Only a RESPONSE that cannot complete its round is: a stale armed
+        entry, one of a round already over, or one that leaves the round
+        short of quorum or of its fill.  It touches only the request's
+        counts and buffer, the scheduler's per-job profile and its own
+        re-arm."""
+        if kind != RESPONSE:
+            return False
+        buf = payload.resp_buf
+        if (payload.resp_t != t or not buf
+                or payload.complete_time is not None
+                or payload.job.current is not payload):
+            return True
+        return not _round_complete(payload, buf[0][4])
+
+    def _inline_events(self, t_i: float, token: Optional[tuple] = None
+                       ) -> bool:
+        """Handle the control events armed before ``t_i`` inside the drain,
+        each as ``_loop`` would, while they are inert.  Returns False, with
+        the first event that is not inert still queued for ``_loop``, or when
+        handling one dirtied the plan or moved the scheduler's match token
+        away from ``token``, the token of the caller's state (which must then
+        be prepared again; None: the caller holds none).  Their wall time
+        goes to ``inline_seconds``; while the parts are kept, to the events'
+        counts, seconds and spans as well."""
+        heap = self._heap
+        pop_response = self._pop_response       # as wrapped on the instance
+        sched = self.sched
+        perf = time.perf_counter
+        while heap and heap[0][0] < t_i:
+            t, _, kind, payload = heap[0]
+            if not self._inert(t, kind, payload):
+                return False
+            te = perf()
+            heapq.heappop(heap)
+            self.now = t
+            pop_response(payload)
+            dt = perf() - te
+            self.inline_seconds += dt
+            if self._clocked:
+                self.inline_events += 1
+                self.event_counts[RESPONSE] += 1
+                self.event_seconds[RESPONSE] += dt
+                tr = _obstrace.TRACER
+                if tr.enabled:
+                    tr.complete(_EVENT_SPAN[RESPONSE], tr.us(te), dt * 1e6,
+                                cat="sim", sim_t=t)
+            if token is not None and (getattr(sched, "_plan_dirty", False)
+                                      or sched.match_token() != token):
+                return False
+        return True
 
     # ------------------------------------------------------------ internals
 
@@ -943,7 +1048,7 @@ class Simulator:
             req.responses += 1
         else:
             req.failures += 1
-        if req.responses >= req.quorum and req.alloc_complete_time is not None:
+        if _round_complete(req):
             self._complete_round(req)
 
     def _on_deadline(self, req: JobRequest) -> None:

@@ -128,6 +128,47 @@ def test_without_a_reader_no_parts_are_kept_and_no_outcome_changes(
     assert off.metrics.jcts == on.metrics.jcts
 
 
+def test_inline_events_are_counted_among_the_responses(traced):
+    """The scalar route handles most responses in place: each is counted
+    once, as an inline event and as a response (its handler's calls)."""
+    sim, handled, _, _, counters = traced
+    p = sim.drain_parts()
+    assert 0 < p["inline_events"] <= p["events.response"] \
+        == handled["response"]
+    assert counters["sim.inline_events"] == p["inline_events"]
+    assert 0 < sim.inline_seconds <= p["event_seconds.response"]
+
+
+@pytest.mark.parametrize("with_obs", [False, True])
+def test_inline_event_time_is_not_drain_time(with_obs):
+    """A response handler made slow (2 ms a call) leaves the drain's
+    stopwatch and the scalar route's self time as they were: events handled
+    inside the drain are timed apart, whether or not the parts are kept."""
+    sim = _sim()
+    inner = sim._pop_response
+
+    def slow(req):
+        t = time.perf_counter()
+        while time.perf_counter() - t < 2e-3:
+            pass
+        return inner(req)
+    sim._pop_response = slow
+    if with_obs:
+        with obs.session(tracing=True, metrics=True):
+            _drive(sim)
+    else:
+        _drive(sim)
+    assert sim.inline_seconds >= 2e-3 * 100
+    assert sim.drain_seconds < 0.5 * sim.inline_seconds
+    if with_obs:
+        p = sim.drain_parts()
+        assert p["inline_events"] >= 100
+        assert p["event_seconds.response"] >= 2e-3 * p["events.response"]
+        assert p["scalar_seconds"] < 0.5 * sim.inline_seconds
+    else:
+        assert sim.inline_events == 0
+
+
 def test_trace_export_gives_its_clock_and_origin():
     tr = Tracer()
     t = time.perf_counter()
