@@ -13,7 +13,10 @@ Parameters (the keys of a configuration's ``"jobs"`` object): ``num_jobs``,
 ``task_sigma``, ``deadline_lo``/``deadline_hi`` (s, scaled with demand),
 ``quorum``, ``workload`` (``even``, ``small``, ``large``, ``low``,
 ``high``), ``pin`` (a requirement class index every job is pinned to, or
-null for the uniform draw) and ``trace_seed``.
+null for the uniform draw), ``bias`` (a requirement class index half the
+jobs are pinned to, each with probability 0.5, as the paper's Sec. 5.4
+biased workloads and the program's ``JobTraceConfig.bias`` draw it; absent
+or null for the uniform draw) and ``trace_seed``.
 """
 from __future__ import annotations
 
@@ -57,7 +60,11 @@ def generate(p: dict, seed: int, num_classes: int) -> dict:
         raise ValueError("base pool too small for the workload filter")
     arrivals = np.cumsum(rng.exponential(p["mean_interarrival"], size=n))
     task_means = _loguniform(rng, p["task_time_lo"], p["task_time_hi"], n)
-    req_idx = rng.integers(0, num_classes, size=n)
+    if p.get("bias") is None:
+        req_idx = rng.integers(0, num_classes, size=n)
+    else:
+        req_idx = np.where(rng.uniform(size=n) < 0.5, int(p["bias"]),
+                           rng.integers(0, num_classes, size=n))
     if p.get("pin") is not None:
         req_idx = np.full(n, int(p["pin"]))
     d = demands[idx]

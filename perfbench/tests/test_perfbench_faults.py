@@ -19,7 +19,10 @@ from gen import jobs as gen_jobs  # noqa: E402
 from reference import sim as reference  # noqa: E402
 
 SMALL = {"even.drain": {"config": {"horizon_s": 14400.0},
-                        "params": {"warm_s": 1800.0}}}
+                        "params": {"warm_s": 1800.0}},
+         "resheavy.drain": {"config": {"horizon_s": 14400.0},
+                            "params": {"warm_s": 1800.0}}}
+CELLS = list(SMALL)
 
 
 def _run(workload, seconds=1.0):
@@ -30,9 +33,10 @@ def _run(workload, seconds=1.0):
 
 @pytest.mark.parametrize("seed,horizon", [(4000000001, 21600.0),
                                           (5, 43200.0)])
-def test_the_float32_control_is_not_correct(seed, horizon):
-    cfg = json.loads((BENCH / "configs" / "venn-paper-even-j50.json")
-                     .read_text())
+@pytest.mark.parametrize("config", ["venn-paper-even-j50",
+                                    "venn-paper-resource-heavy-j50"])
+def test_the_float32_control_is_not_correct(seed, horizon, config):
+    cfg = json.loads((BENCH / "configs" / f"{config}.json").read_text())
     jobs = gen_jobs.generate(cfg["jobs"], cfg["jobs"]["trace_seed"], 4)
     stream = gen_checkins.generate(cfg["population"], seed, horizon)
     ref = reference.run(cfg, jobs, stream, seed, horizon, horizon)
@@ -45,20 +49,23 @@ def test_the_float32_control_is_not_correct(seed, horizon):
     assert not check.verdict(got)
 
 
-def test_a_sound_run_is_correct():
-    res = _run("even.drain")
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_sound_run_is_correct(cell):
+    res = _run(cell)
     assert res["correct"] and res["failed"] == 0
     assert list(res)[-2:] == ["checks", "_log"]
 
 
-def test_a_step_that_leaves_its_state_unchanged_fails(monkeypatch):
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_step_that_leaves_its_state_unchanged_fails(monkeypatch, cell):
     from repro_torch.sim.simulator import Simulator
     monkeypatch.setattr(Simulator, "step_until", lambda self, until=None:
                         False)
-    assert not _run("even.drain")["correct"]
+    assert not _run(cell)["correct"]
 
 
-def test_half_of_each_segment_left_out_fails(monkeypatch):
+@pytest.mark.parametrize("cell", CELLS)
+def test_half_of_each_segment_left_out_fails(monkeypatch, cell):
     from repro_torch.accel.engine import ArrayMatchEngine
     match = ArrayMatchEngine.match
 
@@ -70,10 +77,11 @@ def test_half_of_each_segment_left_out_fails(monkeypatch):
         return res
 
     monkeypatch.setattr(ArrayMatchEngine, "match", half)
-    assert not _run("even.drain")["correct"]
+    assert not _run(cell)["correct"]
 
 
-def test_an_answer_altered_where_it_is_produced_fails(monkeypatch):
+@pytest.mark.parametrize("cell", CELLS)
+def test_an_answer_altered_where_it_is_produced_fails(monkeypatch, cell):
     from repro_torch.sim.simulator import Simulator
     grant = Simulator._grant
 
@@ -85,10 +93,11 @@ def test_an_answer_altered_where_it_is_produced_fails(monkeypatch):
         return filled
 
     monkeypatch.setattr(Simulator, "_grant", altered)
-    assert not _run("even.drain")["correct"]
+    assert not _run(cell)["correct"]
 
 
-def test_an_atom_altered_where_it_is_produced_fails(monkeypatch):
+@pytest.mark.parametrize("cell", CELLS)
+def test_an_atom_altered_where_it_is_produced_fails(monkeypatch, cell):
     from repro_torch.core.eligibility import EligibilityIndex
     classify = EligibilityIndex.classify
 
@@ -100,7 +109,7 @@ def test_an_atom_altered_where_it_is_produced_fails(monkeypatch):
         return ids
 
     monkeypatch.setattr(EligibilityIndex, "classify", altered)
-    assert not _run("even.drain")["correct"]
+    assert not _run(cell)["correct"]
 
 
 def test_a_traced_window_without_device_activity_is_traced_again(

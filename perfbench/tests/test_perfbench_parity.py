@@ -18,6 +18,10 @@ from gen import jobs as gen_jobs  # noqa: E402
 from reference import sim as reference  # noqa: E402
 
 CONFIG = "venn-paper-even-j50"
+CONFIGS = [CONFIG, "venn-paper-resource-heavy-j50"]
+# the program's Sec. 5.4 biases by name, and the class index each pins
+BIASED = {"general": 0, "compute_heavy": 1, "memory_heavy": 2,
+          "resource_heavy": 3}
 
 
 def _cfg(name):
@@ -25,15 +29,25 @@ def _cfg(name):
 
 
 @pytest.mark.parametrize("seed", [1, 20231208])
-def test_job_generator_draws_the_programs_trace(seed):
-    name = CONFIG
+@pytest.mark.parametrize("name,bias", [(c, None) for c in CONFIGS]
+                         + [(CONFIG, b) for b in BIASED])
+def test_job_generator_draws_the_programs_trace(seed, name, bias):
+    """Each configuration's own trace, and the even one under each of the
+    program's biases (a ``bias`` key naming the class index), against the
+    program's generator."""
     from repro_torch.sim.devices import REQUIREMENT_CLASSES
+    from repro_torch.sim.traces import BIASED as PROGRAMS_BIASED
     from repro_torch.sim.traces import JobTraceConfig, generate_jobs
-    p = _cfg(name)["jobs"]
+    assert PROGRAMS_BIASED == BIASED
+    p = dict(_cfg(name)["jobs"])
+    if bias is not None:
+        p["bias"] = BIASED[bias]
+    elif p.get("bias") is not None:
+        bias = {v: k for k, v in BIASED.items()}[p["bias"]]
     mine = gen_jobs.generate(p, seed, len(REQUIREMENT_CLASSES))
     theirs = generate_jobs(JobTraceConfig(
         num_jobs=p["num_jobs"], mean_interarrival=p["mean_interarrival"],
-        workload=p["workload"], seed=seed))
+        workload=p["workload"], bias=bias, seed=seed))
     if p["pin"] is not None:
         for j in theirs:
             j.requirement = REQUIREMENT_CLASSES[p["pin"]]
@@ -71,8 +85,9 @@ def test_checkin_sampler_draws_the_programs_chunks(seed, horizon):
 
 @pytest.mark.parametrize("seed,horizon", [(3000000007, 10800.0),
                                           (2718281829, 21600.0)])
-def test_reference_agrees_with_the_array_drain(seed, horizon):
-    cfg = _cfg(CONFIG)
+@pytest.mark.parametrize("name", CONFIGS)
+def test_reference_agrees_with_the_array_drain(seed, horizon, name):
+    cfg = _cfg(name)
     jobs = gen_jobs.generate(cfg["jobs"], cfg["jobs"]["trace_seed"], 4)
     stream = gen_checkins.generate(cfg["population"], seed, horizon)
     ep = program.Episode(program.port(), cfg, jobs, stream, seed, horizon,

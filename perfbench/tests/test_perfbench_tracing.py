@@ -71,8 +71,71 @@ def test_a_traced_run_reports_the_five_parts(with_sim):
         assert p[name] is not None and math.isfinite(p[name]), name
     assert c["vector_rows"] + c["scalar_rows"] + c["head_misses"] \
         + c["idle_rows"] == c["decided"]
-    assert 0 < p["matcher_row_share"] < 100
+    assert 0 < p["vector_row_share"] < 100
     assert c["grants"] > 0 and sum(
         v for k, v in c.items() if k.startswith("events.")) > 0
     assert p["self_sum_s"] == pytest.approx(p["step_until_s"], rel=0.05)
     assert "sim.drain" in named and "stream.chunk_load" not in named
+
+
+def _traced_share(name, seed, t0, t1, tmp_path, monkeypatch):
+    """A capture over simulated seconds ``t0``-``t1`` of one episode of
+    ``name``, on the CPU: its readings and the rows a spy on
+    ``engine.match`` saw handed to the matcher in that span."""
+    import json
+    import torch
+    import program
+    import tracing
+    from gen import checkins as gen_checkins
+    from gen import jobs as gen_jobs
+    from repro_torch.accel.engine import ArrayMatchEngine
+    cfg = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+    jobs = gen_jobs.generate(cfg["jobs"], cfg["jobs"]["trace_seed"], 4)
+    stream = gen_checkins.generate(cfg["population"], seed, t1)
+    ep = program.Episode(program.port(), cfg, jobs, stream, seed, t1, "cpu")
+    t = 0.0
+    while t < t0:
+        t += 60.0
+        ep.step_until(t)
+    seen = []
+    match = ArrayMatchEngine.match
+
+    def spy(self, atom_ids, speeds, start=None):
+        res = match(self, atom_ids, speeds, start)
+        seen.append(len(atom_ids))
+        return res
+
+    monkeypatch.setattr(ArrayMatchEngine, "match", spy)
+    cap = tracing.Capture(str(tmp_path / "trace.json"),
+                          lambda: program.counters([ep]),
+                          torch.device("cpu"))
+    decided0 = ep.decided
+    cap.start()
+    while t < t1:
+        t += 60.0
+        ep.step_until(t)
+    cap.stop()
+    monkeypatch.setattr(ArrayMatchEngine, "match", match)
+    r = cap.readings()
+    assert r["decided"] == ep.decided - decided0 > 0
+    return r, sum(seen)
+
+
+def test_matcher_row_share_reads_the_rows_handed_to_the_matcher(
+        tmp_path, monkeypatch):
+    """The reading is the rows ``engine.match`` was handed over the check-ins
+    decided, and over the second half of an episode's second day the
+    resource-heavy mix routes several times the even mix's share to the
+    matcher."""
+    import harness
+    read = harness.load_module("metrics", "matcher_row_share").read
+    shares = {}
+    for name in ("venn-paper-even-j50", "venn-paper-resource-heavy-j50"):
+        r, rows = _traced_share(name, 2500000104, 129600.0, 172800.0,
+                                tmp_path, monkeypatch)
+        assert r["matcher_route_rows"] == rows
+        shares[name] = read(r)
+        assert shares[name] == pytest.approx(rows / r["decided"] * 100,
+                                             rel=1e-12)
+    assert shares["venn-paper-resource-heavy-j50"] > \
+        5 * shares["venn-paper-even-j50"] > 0

@@ -131,8 +131,10 @@ READERS = {
     # segment bookkeeping, ns an engine.prepare call
     "segment_ns_per_segment": lambda r: _per(_bookkeeping(r),
                                              r["drain_segments"]),
-    # drain routing: rows the device matcher decided over rows examined, %
-    "matcher_row_share": lambda r: _per(
+    # drain routing: rows the vectorised route decided (after its cuts)
+    # over rows examined, % (the benchmark's matcher_row_share counts the
+    # rows handed to it over all rows decided)
+    "vector_row_share": lambda r: _per(
         r["vector_rows"],
         r["vector_rows"] + r["scalar_rows"] + r["head_misses"], 100.0),
 }

@@ -8,7 +8,8 @@ measured window, cut at a slice boundary) it records:
   seconds, the mirror's rebuild and patch seconds;
 * the program's spans of category ``sched`` and ``accel`` (``venn.replan``,
   ``accel.match``, ``accel.state_delta``, ``accel.state_rebuild``), through
-  its own tracer;
+  its own tracer; each ``accel.match`` span carries the rows of the segment
+  the drain handed to the matcher;
 * spans of the benchmark's own around calls into the program: each
   ``step_until`` slice and each chunk the simulator loads (``stream``);
 * the arguments of each call into the two kernels, kept as they are
@@ -196,6 +197,12 @@ class Capture:
         reps = [e for e in self.events if e["name"] == "venn.replan"]
         d["replans"] = len(reps)
         d["replan_s"] = sum(e["dur"] for e in reps) / 1e6
+        # a segment the engine sent back for a wider export is handed over
+        # again after the rebuild, and counted there
+        d["matcher_route_rows"] = sum(
+            e["args"]["rows"] for e in self.events
+            if e["name"] == "accel.match"
+            and e["args"].get("outcome") != "need_wider_export")
         d["shapes"] = self._shapes()
         d["device"] = self._device()
         d["trace_export_s"] = self.export_s
