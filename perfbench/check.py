@@ -76,6 +76,14 @@ def compare(prog: dict, ref: dict, times: np.ndarray, names) -> dict:
             "rounds_compared": len(r_rounds)}
 
 
+def as_program(ref: dict, times: np.ndarray, until: float) -> dict:
+    """A reference replay's answers in the program's form, to ``until``:
+    each grant by its check-in's time, as the program logs it, so that one
+    replay can be held against another in the program's place."""
+    return dict(ref, until=until,
+                grants=[(float(times[r]), j, k) for r, j, k in ref["grants"]])
+
+
 def total(results) -> dict:
     """Sum of the numbers over the episodes compared."""
     out: dict = {}

@@ -28,6 +28,9 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 OUT = HERE / "_out"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# the scheduler settings that both the program (``program.Episode``) and
+# the plain reference (``reference.sim.build``) read
+SCHEDULER_KEYS = ("name", "num_tiers", "epsilon", "supply_window_s")
 
 
 def load_json(*parts) -> dict:
@@ -55,6 +58,20 @@ def cell_spec(bench: dict, name: str) -> dict:
                                  "disagree on config or traffic")
             return spec
     raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+
+
+def check_scheduler(cfg: dict) -> None:
+    """Refuse a configuration whose ``scheduler`` states a setting that
+    only one side would honour: a key other than ``SCHEDULER_KEYS``, one
+    of them left out, or a scheduler other than VENN."""
+    s = cfg["scheduler"]
+    if set(s) != set(SCHEDULER_KEYS):
+        raise ValueError(
+            f"{cfg.get('name')}: the scheduler states {sorted(s)}; the "
+            f"program and the reference read exactly {list(SCHEDULER_KEYS)}")
+    if s["name"] != "venn":
+        raise ValueError(f"{cfg.get('name')}: scheduler {s['name']!r}; the "
+                         "reference replays VENN only")
 
 
 def metrics_of(bench: dict, cell: str, group: str):
@@ -112,6 +129,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if overrides:
         cfg.update(overrides.get("config", {}))
         params.update(overrides.get("params", {}))
+    check_scheduler(cfg)
     device = torch.device("cuda", 0) if device is None else \
         torch.device(device)
     OUT.mkdir(exist_ok=True)

@@ -299,7 +299,8 @@ def build(cfg: dict, trace: dict, stream, seed: int, horizon: float,
                   for k, v in ck.items()}
         chunks.append((int(stream.bounds[c]), ck))
     s = cfg["scheduler"]
-    sched = Venn(seed, s["num_tiers"], s["supply_window_s"], q)
+    sched = Venn(seed, s["num_tiers"], s["epsilon"], s["supply_window_s"],
+                 q)
     return Simulator(jobs, sched, chunks, q(stream.fail_base),
                      q(stream.fail_slow_boost), horizon,
                      cfg["sim"]["max_round_retries"], q)

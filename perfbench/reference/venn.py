@@ -3,10 +3,14 @@
 A frozen, condensed copy of the scalar path that the program implements:
 atoms interned from requirement thresholds, the 24-hour windowed supply
 estimator, Algorithm 1 (IRS) recomputed in full at every replan, the
-dispatch table lowered from its plan, and Algorithm 2's tier decisions.
-Plain Python and NumPy; it imports nothing of the program and keeps no
-device state.  Only the settings the benchmark's configurations state are
-kept: the fairness knob at 0, IRS and matching on, no tenant priorities.
+dispatch table lowered from its plan, Algorithm 2's tier decisions, and
+the fairness knob ε of Sec. 4.4, which biases Algorithm 1's two inputs by
+each job's attained service against its fair share.  Plain Python and
+NumPy; it imports nothing of the program and keeps no device state.  Only
+the settings a configuration's ``scheduler`` can state are kept: the
+number of tiers, the supply window and ε; IRS and matching are always on,
+and there are no tenant priorities.  At ε = 0 the fairness code is never
+entered, so the answers are those of Sec. 4.2 alone.
 
 ``q`` is the rounding applied where a float is stored: the identity for
 the configuration's float64, or a round to float32 for the control that
@@ -22,6 +26,9 @@ from typing import Dict, FrozenSet, List, Optional
 import numpy as np
 
 AtomKey = FrozenSet[str]
+
+# the fairness knob's clamp on a usage ratio before its ε-power
+FAIR_LO, FAIR_HI = 0.7, 1.45
 
 
 def identity(x):
@@ -296,6 +303,10 @@ def _atom_order(g: Group):
     return g.atom_rates if g.atom_rates else g.eligible_atoms
 
 
+def _fair_clamp(r: float) -> float:
+    return min(max(r, FAIR_LO), FAIR_HI)
+
+
 def _pressure(queue: float, alloc_rate: float) -> float:
     if queue <= 0:
         return 0.0
@@ -304,14 +315,15 @@ def _pressure(queue: float, alloc_rate: float) -> float:
     return queue / alloc_rate
 
 
-def venn_schedule(groups: List[Group]):
+def venn_schedule(groups: List[Group], demand_key, queue_len):
     """``(job_order, atom_priority)`` of one VENN-SCHED run: each group's
-    jobs by remaining demand (then id), and each atom's groups, owners
-    first, then the others scarcest first."""
+    jobs by ``demand_key`` (then id), and each atom's groups, owners
+    first, then the others scarcest first; a group takes a donor's shared
+    atoms while its ``queue_len`` over its allocated rate is the higher."""
     active = [g for g in groups if g.pending_jobs()]
     job_order: Dict[str, List[Job]] = {}
     for g in active:
-        keyed = sorted((float(j.remaining_demand), j.job_id, j)
+        keyed = sorted((demand_key(j), j.job_id, j)
                        for j in g.pending_jobs())
         job_order[g.requirement.name] = [j for _, _, j in keyed]
     if not active:
@@ -330,8 +342,8 @@ def venn_schedule(groups: List[Group]):
                   and not gk.eligible_atoms.isdisjoint(gj.eligible_atoms)]
         donors.sort(key=lambda g: (-g.supply, g.requirement.name))
         for gk in donors:
-            if _pressure(float(gj.queue_len), gj.alloc_rate) > \
-                    _pressure(float(gk.queue_len), gk.alloc_rate):
+            if _pressure(queue_len(gj), gj.alloc_rate) > \
+                    _pressure(queue_len(gk), gk.alloc_rate):
                 shared = [a for a in _atom_order(gj) if a in gk.allocation]
                 for a in shared:
                     gj.allocation[a] = gj.allocation.get(a, 0.0) \
@@ -362,10 +374,12 @@ class Profile:
         self.max_samples = max_samples
         self.speeds: List[float] = []
         self.rts: List[float] = []
+        self.p95: Optional[float] = None    # cached by ``Venn._t_response``
 
     def record(self, speed: float, rt: float) -> None:
         self.speeds.append(speed)
         self.rts.append(rt)
+        self.p95 = None
         if len(self.rts) >= 2 * self.max_samples:
             self._truncate()
 
@@ -427,9 +441,10 @@ class Venn:
     """The scheduler: replans lazily at the first check-in after a request
     arrives or completes, then serves check-ins from its dispatch table."""
 
-    def __init__(self, seed: int, num_tiers: int, supply_window: float,
-                 q=identity):
+    def __init__(self, seed: int, num_tiers: int, epsilon: float,
+                 supply_window: float, q=identity):
         self.q = q
+        self.epsilon = q(float(epsilon))
         self.atoms = Atoms()
         self.supply = Supply(supply_window, q)
         self.rng = random.Random(seed + 1)
@@ -545,7 +560,17 @@ class Venn:
             g.atom_rates = {keys[a]: rates[a] for a in aids}
             g.supply = self.q(sum(g.atom_rates.values()))
             g.allocation = {}
-        self.job_order, priority = venn_schedule(active)
+        if self.epsilon > 0.0:
+            num_jobs = sum(len(g.pending_jobs()) for g in active)
+            queues = {g.requirement.name: self._queue_len(g, num_jobs)
+                      for g in active}
+            self.job_order, priority = venn_schedule(
+                active, lambda j: self._demand_key(j, num_jobs),
+                lambda g: queues[g.requirement.name])
+        else:
+            self.job_order, priority = venn_schedule(
+                active, lambda j: float(j.remaining_demand),
+                lambda g: float(g.queue_len))
         for a in atoms:
             priority.setdefault(a, [])
         self._decide_tiers()
@@ -571,18 +596,67 @@ class Venn:
                 prof = self.profiles[job.job_id] = Profile()
             rate = self.groups[job.requirement.name].alloc_rate
             t_sched = self.q(req.remaining / rate) if rate > 0 else math.inf
-            if prof.n >= 8:
-                rts = prof.sorted_views()[2]
-                t_resp = float(rts[min(len(rts) - 1, int(0.95 * len(rts)))])
-            else:
-                t_resp = self.q(job.task_time_mean
-                                * math.exp(1.645 * job.task_time_sigma))
-            band = decide_tier(self.rng, self.v, prof, t_sched, t_resp,
-                               self.q)
+            band = decide_tier(self.rng, self.v, prof, t_sched,
+                               self._t_response(job, prof), self.q)
             self.tier_decided[job.job_id] = (req.round_index, req.aborted)
             if band is not None:
                 kept[id(req)] = band
         self.tiers = kept
+
+    # ------------------------------------------------ the fairness knob
+
+    def _t_response(self, job: Job, prof: Profile) -> float:
+        """The job's response time: the p95 of its profile's samples once
+        it has 8, else the log-normal prior's p95."""
+        if prof.n >= 8:
+            if prof.p95 is None:
+                rts = prof.sorted_views()[2]
+                prof.p95 = float(rts[min(len(rts) - 1,
+                                         int(0.95 * len(rts)))])
+            return prof.p95
+        return self.q(job.task_time_mean
+                      * math.exp(1.645 * job.task_time_sigma))
+
+    def _solo_jct(self, job: Job) -> float:
+        """``sd_i``, the job's contention-free completion time: its
+        remaining rounds (at least one) at its group's supply (the
+        estimator's prior rate where that is 0) plus its response time."""
+        g = self.groups.get(job.requirement.name)
+        rate = g.supply if g and g.supply > 0 else self.supply.prior_rate
+        prof = self.profiles.get(job.job_id)
+        if prof is None:
+            prof = self.profiles[job.job_id] = Profile()
+        q = self.q
+        per_round = q(q(job.demand_per_round / rate)
+                      + self._t_response(job, prof))
+        return q(max(job.remaining_rounds, 1) * per_round)
+
+    def _demand_key(self, job: Job, num_jobs: int) -> float:
+        """``d' = d * clamp(t / T)^ε``: the remaining demand ``d`` biased by
+        the job's attained service ``t`` against its fair share
+        ``T = max(num_jobs, 1) * sd``."""
+        q = self.q
+        t_fair = q(max(num_jobs, 1) * max(self._solo_jct(job), 1e-9))
+        usage = _fair_clamp(q(job.attained_service / t_fair))
+        return q(float(job.remaining_demand) * q(usage ** self.epsilon))
+
+    def _queue_len(self, g: Group, num_jobs: int) -> float:
+        """``q' = q * clamp(ΣT / Σt)^ε`` over the group's jobs that hold a
+        request, summed in the group's job order."""
+        n = float(g.queue_len)
+        if n == 0:
+            return n
+        q = self.q
+        held = [j for j in g.jobs if j.current is not None]
+        tot_fair = 0
+        for j in held:
+            tot_fair = q(tot_fair + q(max(num_jobs, 1)
+                                      * max(self._solo_jct(j), 1e-9)))
+        tot_used = 0
+        for j in held:
+            tot_used = q(tot_used + max(j.attained_service, 0.0))
+        ratio = _fair_clamp(q(tot_fair / max(tot_used, 1e-9)))
+        return q(n * q(ratio ** self.epsilon))
 
     def _compile(self, priority: Dict[AtomKey, List[Group]]) -> None:
         lowered: Dict[str, list] = {}

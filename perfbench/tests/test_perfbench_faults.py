@@ -25,10 +25,15 @@ SMALL = {"even.drain": {"config": {"horizon_s": 14400.0},
 CELLS = list(SMALL)
 
 
-def _run(workload, seconds=1.0):
+def _run(workload, seconds=1.0, overrides=None):
     return harness.run_cell(workload, 2718281828, seconds, False,
                             time.perf_counter(), device="cpu",
-                            overrides=SMALL[workload])
+                            overrides=overrides or SMALL[workload])
+
+
+def _scheduler(**change):
+    return dict(json.loads((BENCH / "configs" / "venn-paper-even-j50.json")
+                           .read_text())["scheduler"], **change)
 
 
 @pytest.mark.parametrize("seed,horizon", [(4000000001, 21600.0),
@@ -42,7 +47,8 @@ def test_the_float32_control_is_not_correct(seed, horizon, config):
     ref = reference.run(cfg, jobs, stream, seed, horizon, horizon)
     low = reference.run(cfg, jobs, stream, seed, horizon, horizon,
                         precision="float32")
-    got = check.compare(dict(low, until=horizon), ref,
+    got = check.compare(check.as_program(low, stream.arrays["times"],
+                                         horizon), ref,
                         stream.arrays["times"],
                         [r["name"] for r in cfg["requirements"]])
     assert got["grant_mismatch"] + got["round_mismatch"] > 0
@@ -110,6 +116,43 @@ def test_an_atom_altered_where_it_is_produced_fails(monkeypatch, cell):
 
     monkeypatch.setattr(EligibilityIndex, "classify", altered)
     assert not _run(cell)["correct"]
+
+
+def test_a_reference_that_ignores_the_fairness_knob_fails(monkeypatch):
+    """The program at ε = 2 against a reference held at ε = 0.  On this
+    seed the two first decide a grant apart between the second and the
+    fourth simulated hour, so the window (4 s on the CPU) has to cover the
+    whole 4-hour episode."""
+    over = {"config": dict(SMALL["even.drain"]["config"],
+                           scheduler=_scheduler(epsilon=2.0)),
+            "params": SMALL["even.drain"]["params"]}
+    assert _run("even.drain", 4.0, over)["correct"]
+    build = reference.build
+
+    def plain(cfg, *args, **kw):
+        return build(dict(cfg, scheduler=dict(cfg["scheduler"],
+                                              epsilon=0.0)), *args, **kw)
+
+    monkeypatch.setattr(reference, "build", plain)
+    res = _run("even.drain", 4.0, over)
+    assert not res["correct"] and res["checks"]["grant_mismatch"]["value"]
+
+
+@pytest.mark.parametrize("scheduler", [
+    _scheduler(priority=2.0), _scheduler(enable_irs=False),
+    {k: v for k, v in _scheduler().items() if k != "epsilon"},
+    _scheduler(name="random")],
+    ids=["unknown_key", "ablation_key", "epsilon_left_out", "other_name"])
+def test_a_scheduler_setting_one_side_ignores_is_refused(monkeypatch,
+                                                        scheduler):
+    loaded = []
+    monkeypatch.setattr(harness, "load_module",
+                        lambda kind, name: loaded.append(kind))
+    with pytest.raises(ValueError, match="scheduler"):
+        harness.run_cell("even.drain", 2718281828, 1.0, False,
+                         time.perf_counter(), device="cpu",
+                         overrides={"config": {"scheduler": scheduler}})
+    assert loaded == []
 
 
 def test_a_traced_window_without_device_activity_is_traced_again(

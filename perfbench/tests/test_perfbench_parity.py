@@ -1,6 +1,8 @@
 """The benchmark's frozen generators against the program's, and its plain
 reference against the program's array drain (``device="cpu"``), on a few
 simulated hours of the configuration."""
+import copy
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -85,9 +87,17 @@ def test_checkin_sampler_draws_the_programs_chunks(seed, horizon):
 
 @pytest.mark.parametrize("seed,horizon", [(3000000007, 10800.0),
                                           (2718281829, 21600.0)])
-@pytest.mark.parametrize("name", CONFIGS)
-def test_reference_agrees_with_the_array_drain(seed, horizon, name):
+@pytest.mark.parametrize("name,epsilon",
+                         [pytest.param(c, None, id=c) for c in CONFIGS]
+                         + [pytest.param(CONFIG, 2.0, id=f"{CONFIG}-eps2")])
+def test_reference_agrees_with_the_array_drain(seed, horizon, name, epsilon):
+    """Each configuration as it is, and the even one with the fairness knob
+    at ε = 2 (Sec. 4.4).  Within the first hour a job's attained service
+    passes 0.7 of its fair share and a group's queue its clamp, so the ε
+    case also has to decide some grant otherwise than ε = 0 does."""
     cfg = _cfg(name)
+    if epsilon is not None:
+        cfg["scheduler"]["epsilon"] = epsilon
     jobs = gen_jobs.generate(cfg["jobs"], cfg["jobs"]["trace_seed"], 4)
     stream = gen_checkins.generate(cfg["population"], seed, horizon)
     ep = program.Episode(program.port(), cfg, jobs, stream, seed, horizon,
@@ -104,3 +114,58 @@ def test_reference_agrees_with_the_array_drain(seed, horizon, name):
     assert {k: got[k] for k in check.LIMITS} == \
         {"atom_mismatch": 0, "grant_mismatch": 0, "round_mismatch": 0}
     assert check.verdict(got)
+    if epsilon is not None:
+        plain = copy.deepcopy(cfg)
+        plain["scheduler"]["epsilon"] = 0.0
+        ref0 = reference.run(plain, jobs, stream, seed, horizon, horizon)
+        apart = check.compare(
+            check.as_program(ref, stream.arrays["times"], horizon), ref0,
+            stream.arrays["times"], [r["name"] for r in cfg["requirements"]])
+        assert apart["grant_mismatch"] > 0
+
+
+def _digest(ans) -> str:
+    """The reference's answers as one hash: grants and rounds (floats by
+    their exact hex), each chunk's atom ids, the atoms' keys."""
+    def canon(x):
+        if isinstance(x, (tuple, list)):
+            return [canon(v) for v in x]
+        if isinstance(x, (int, np.integer)):
+            return int(x)
+        return float(x).hex()
+    h = hashlib.sha256()
+    h.update(json.dumps(canon(ans["grants"])).encode())
+    h.update(json.dumps(canon(ans["rounds"])).encode())
+    for off, ids in ans["loaded"]:
+        h.update(str(int(off)).encode())
+        h.update(np.asarray(ids, dtype=np.int64).tobytes())
+    h.update(json.dumps([sorted(k) for k in ans["atom_keys"]]).encode())
+    return h.hexdigest()
+
+
+# the answers of the reference before it took the fairness knob, on 12
+# simulated hours: at ε = 0 they may not change by a bit, in float64 or in
+# the float32 control
+PINNED = {
+    ("venn-paper-even-j50", 1000000007, "float64"):
+        "bd6edd5ff482bba2f4289a9ba55376b80309d9b3b3bf34ef9326249ef3e61378",
+    ("venn-paper-even-j50", 1000000007, "float32"):
+        "9c4f3e58d5d17ffd2308994fed1e138ab37e64855dd5d25f83d414dd370e45e0",
+    ("venn-paper-resource-heavy-j50", 1000000009, "float64"):
+        "e8cf9007f70fd5ea9daf185c1f5684d97b56723b8c1803de9041c1f251f2c709",
+    ("venn-paper-resource-heavy-j50", 1000000009, "float32"):
+        "814b32217d3f47ef696536264ec1667bd73ac47b2c6d3d2383669033635b2974",
+}
+
+
+@pytest.mark.parametrize("name,seed,precision", list(PINNED))
+def test_the_reference_at_epsilon_0_keeps_its_answers(name, seed,
+                                                      precision):
+    cfg = _cfg(name)
+    assert cfg["scheduler"]["epsilon"] == 0.0
+    horizon = 43200.0
+    jobs = gen_jobs.generate(cfg["jobs"], cfg["jobs"]["trace_seed"], 4)
+    stream = gen_checkins.generate(cfg["population"], seed, horizon)
+    ans = reference.run(cfg, jobs, stream, seed, horizon, horizon,
+                        precision=precision)
+    assert _digest(ans) == PINNED[name, seed, precision]

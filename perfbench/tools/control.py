@@ -50,7 +50,8 @@ def main() -> int:
         # the control answers for the span it reached, as a run of the
         # program does: to its last job's completion
         reached = min(until, low["finished_at"] or until)
-        got = check.compare(dict(low, until=reached), ref,
+        got = check.compare(check.as_program(low, stream.arrays["times"],
+                                             reached), ref,
                             stream.arrays["times"], names)
         out["reached"] = reached
         out.update(got, correct=check.verdict(got))
