@@ -6,31 +6,30 @@ only change on request arrival/completion, which are heap events), except
 that requests *fill* as grants are handed out.  Matching a whole segment is
 therefore a sequential-capacity problem: process check-ins in time order,
 give each its first eligible live slot, decrement that request's remaining
-demand.  :func:`match_chunk` solves it without a per-device loop via a
-**fill-position fixed point**:
+demand.  :func:`match_chunk_torch` solves it without a per-device loop via
+a **fill-position fixed point**:
 
 1. assume no request fills inside the segment (``fillpos[r] = n``);
 2. give every check-in its first candidate slot whose tier band accepts its
    speed and whose request is not yet filled *at the check-in's position*
    (a masked first-fit over the ``(n, K)`` candidate matrix);
 3. recompute each request's fill position (the position of its
-   ``remaining[r]``-th chooser, via one stable argsort + segment counts);
+   ``remaining[r]``-th chooser);
 4. repeat from 2 until the fill positions stop moving.
 
 Fill positions only ever move earlier (a device falls to a lower-priority
 slot only when an earlier fill invalidates its pick, adding choosers —
 never removing early ones), so the loop converges in at most
-``#requests-that-fill + 1`` iterations — typically 1–3 — each fully
-vectorized.  The result is bit-identical to the sequential scan; a
-sequential reference (:func:`match_chunk_seq`) backs the property tests and
-serves as a safety net on non-convergence.
+``#requests-that-fill + 1`` iterations — typically 1–3.  The result is
+bit-identical to the sequential scan; a sequential reference
+(:func:`match_chunk_seq`) backs the property tests and serves degraded
+segments.
 
-Backends: ``torch`` (default — on a CUDA device the whole fixed point of a
-segment is one launch of the hand-written kernel of
+One matcher per device: on a CUDA device the whole fixed point of a segment
+is one launch of the hand-written kernel of
 :mod:`repro_torch.accel.kernels.match_segment`, with one upload and one
 download around it; on ``device="cpu"`` its plain version runs: the torch
-program of :mod:`repro_torch.accel.match` on CPU tensors) and ``numpy`` (the
-host fixed point below, kept for host-only runs and as a cross-check).
+program of :mod:`repro_torch.accel.match` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -51,7 +50,7 @@ from .kernels.build import KernelError
 from .state import MatchState
 
 __all__ = ["ArrayMatchEngine", "DeviceMatchError", "MatchResult", "SEG_ROWS",
-           "match_chunk", "match_chunk_seq", "match_chunk_torch"]
+           "match_chunk_seq", "match_chunk_torch"]
 
 # Upper bound on check-in rows per match call.  Prefix consistency makes
 # slicing exact (a device's outcome depends only on earlier devices), and the
@@ -88,8 +87,8 @@ class MatchResult:
     ``i`` would be assigned, ``-1`` if no slot wants it; ``granted[i]`` is
     True where the assignment holds under capacity (the first
     ``remaining[r]`` choosers of each request ``r``, in time order).
-    ``rounds`` is the number of fixed-point rounds the torch backend took
-    (0 for the other paths)."""
+    ``rounds`` is the number of fixed-point rounds :func:`match_chunk_torch`
+    took (0 for the other paths)."""
 
     choice: np.ndarray
     granted: np.ndarray
@@ -102,7 +101,7 @@ class MatchResult:
 
 def match_chunk_seq(atom_ids: np.ndarray, speeds: np.ndarray,
                     state: MatchState) -> MatchResult:
-    """Per-device sequential matching — the oracle ``match_chunk`` must equal.
+    """Per-device sequential matching — the oracle the fixed point must equal.
 
     Mirrors ``DispatchTable.assign`` / ``BaseScheduler.checkin``: scan the
     atom's candidate slots in priority order, skip filled requests and
@@ -129,75 +128,7 @@ def match_chunk_seq(atom_ids: np.ndarray, speeds: np.ndarray,
 
 
 # --------------------------------------------------------------------------- #
-# Vectorized fixed point (NumPy)
-# --------------------------------------------------------------------------- #
-
-def _group_ranks(choice: np.ndarray) -> Tuple[np.ndarray, np.ndarray,
-                                              np.ndarray, np.ndarray]:
-    """For check-ins with a choice: stable sort by request, returning
-    ``(sel_idx, sorted_choice, sorted_pos, rank_within_request)``."""
-    sel = np.flatnonzero(choice >= 0)
-    ch = choice[sel]
-    order = np.argsort(ch, kind="stable")         # positions stay ascending
-    ch_s = ch[order]
-    p_s = sel[order]
-    new_grp = np.empty(len(ch_s), dtype=bool)
-    if len(ch_s):
-        new_grp[0] = True
-        np.not_equal(ch_s[1:], ch_s[:-1], out=new_grp[1:])
-    starts = np.flatnonzero(new_grp)
-    grp = np.cumsum(new_grp) - 1
-    rank_s = np.arange(len(ch_s)) - starts[grp] if len(ch_s) \
-        else np.zeros(0, dtype=np.int64)
-    return sel, ch_s, p_s, rank_s
-
-
-def match_chunk(atom_ids: np.ndarray, speeds: np.ndarray,
-                state: MatchState, max_iters: Optional[int] = None
-                ) -> MatchResult:
-    """Vectorized segment matching (NumPy fill-position fixed point)."""
-    n = len(atom_ids)
-    rem = state.remaining
-    R = len(rem)
-    if n == 0 or R == 0:
-        return MatchResult(np.full(n, -1, dtype=np.int64),
-                           np.zeros(n, dtype=bool))
-    reqix = state.cand_req[atom_ids]                       # (n, K)
-    sp = speeds[:, None]
-    elig = (reqix >= 0) & (state.cand_lo[atom_ids] <= sp) \
-        & (sp < state.cand_hi[atom_ids])
-    safe = np.where(reqix >= 0, reqix, 0)
-    pos = np.arange(n, dtype=np.int64)
-    fillpos = np.where(rem > 0, n, -1).astype(np.int64)
-    iters = max_iters if max_iters is not None else R + 2
-    choice = None
-    for it in range(iters):
-        avail = elig & (fillpos[safe] >= pos[:, None])
-        anyav = avail.any(axis=1)
-        kfirst = np.argmax(avail, axis=1)
-        choice = np.where(anyav, reqix[pos, kfirst], -1)
-        new_fill = np.where(rem > 0, n, -1).astype(np.int64)
-        sel, ch_s, p_s, rank_s = _group_ranks(choice)
-        if len(ch_s):
-            last = rank_s == rem[ch_s] - 1        # the filling grant per req
-            new_fill[ch_s[last]] = p_s[last]
-        if np.array_equal(new_fill, fillpos):
-            reg = _obsmetrics.REGISTRY
-            if reg.enabled:
-                reg.histogram("accel.fixedpoint_iters",
-                              lo=1.0, hi=1e3,
-                              buckets_per_decade=20).record(it + 1)
-            granted = np.zeros(n, dtype=bool)
-            granted[p_s] = rank_s < rem[ch_s]
-            return MatchResult(choice, granted)
-        fillpos = new_fill
-    # Safety net: the fixed point is proven to converge within R+2 rounds;
-    # fall back to the sequential scan rather than crash if that ever breaks.
-    return match_chunk_seq(atom_ids, speeds, state)       # pragma: no cover
-
-
-# --------------------------------------------------------------------------- #
-# Torch backend (device-resident fixed point)
+# The matcher (device-resident fixed point)
 # --------------------------------------------------------------------------- #
 
 def match_chunk_torch(atom_ids: np.ndarray, speeds: np.ndarray,
@@ -240,7 +171,7 @@ def match_chunk_torch(atom_ids: np.ndarray, speeds: np.ndarray,
     if not res.settled:
         # The fixed point is proven to settle within R+2 rounds.  If that
         # ever breaks on the card the kernel is wrong, and the run stops; on
-        # the CPU the sequential scan serves the segment, as in match_chunk.
+        # the CPU the sequential scan serves the segment.
         if dev.type == "cuda":
             raise DeviceMatchError(
                 f"fixed point did not settle in {res.rounds} rounds "
@@ -258,7 +189,7 @@ def match_chunk_torch(atom_ids: np.ndarray, speeds: np.ndarray,
 # --------------------------------------------------------------------------- #
 
 class ArrayMatchEngine:
-    """Owns the :class:`MatchState` cache and backend selection for a
+    """Owns the :class:`MatchState` cache and the matcher's device for a
     :class:`~repro_torch.sim.simulator.Simulator` running with ``engine="array"``.
 
     Protocol (driven by the simulator's array drain):
@@ -270,16 +201,12 @@ class ArrayMatchEngine:
     * grants the simulator applies are mirrored via ``state.consume``.
     """
 
-    def __init__(self, backend: str = "torch", kcap: int = 32,
+    def __init__(self, kcap: int = 32,
                  replan_budget_s: Optional[float] = None,
                  device: DeviceLike = None):
-        if backend not in ("numpy", "torch"):
-            raise ValueError(f"unknown accel backend {backend!r}")
-        self.backend = backend
-        # the torch backend's device (cuda:0 unless the caller asks for the
-        # CPU); the numpy backend is host-only and has none
-        self.device = resolve_device(device) if backend == "torch" else None
-        if self.device is not None and self.device.type == "cuda":
+        # the matcher's device: cuda:0 unless the caller asks for the CPU
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
             # build + load the kernel here, outside any guard: a missing
             # compiler or a broken source must fail the run, not degrade it
             _match_segment.ensure_built()
@@ -287,8 +214,8 @@ class ArrayMatchEngine:
         # uploaded once per (re)classification; the kernel reads a segment's
         # rows out of it by offset and live-row list
         self._chunk_dev: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-        self.fixedpoint_rounds = 0      # torch backend: fixed-point rounds
-        self.matcher_calls = 0          # torch backend: segments that reached
+        self.fixedpoint_rounds = 0      # fixed-point rounds of the matcher
+        self.matcher_calls = 0          # segments that reached
         self.matcher_rows = 0           # the device matcher, their rows,
         self.matcher_s = 0.0            # and the wall time spent in them
         self.matcher_max_rows = 0       # the largest segment matched
@@ -345,7 +272,7 @@ class ArrayMatchEngine:
 
     def prepare(self, sched, now: float) -> MatchState:
         if (self.replan_budget_s is not None and self.state is not None
-                and getattr(sched, "_plan_dirty", False)
+                and sched.plan_dirty
                 and now - self._last_replan_t < self.replan_budget_s):
             # serve the stale plan: zero capacity of requests that are no
             # longer live so no grant can reach them; new requests simply
@@ -369,7 +296,7 @@ class ArrayMatchEngine:
                 # audit stream's cross-engine byte-identity
                 aud.stale_plan(now)
             return st
-        was_dirty = bool(getattr(sched, "_plan_dirty", True))
+        was_dirty = sched.plan_dirty
         sched.prepare_match(now)
         token = sched.match_token()
         st = self.state
@@ -413,11 +340,6 @@ class ArrayMatchEngine:
                            requests=len(st.requests))
                 self.rebuilds += 1
                 self._rebuilt_requests = len(st.requests)
-            # NOTE: classify() can intern new atom ids without a version
-            # bump, so callers must re-check num_atoms per segment —
-            # miss_free alone only certifies the id space seen at build
-            st.miss_free = st.all_covered \
-                and st.num_atoms == sched.index.num_atoms
         if was_dirty or self._last_replan_t == -np.inf:
             self._last_replan_t = now
         return st
@@ -428,8 +350,6 @@ class ArrayMatchEngine:
     def bind_chunk(self, atom_ids: np.ndarray, speeds: np.ndarray) -> None:
         """Upload a (re)classified chunk's atom ids and speeds once; later
         ``match(..., start=cursor)`` calls read their rows on the device."""
-        if self.device is None:
-            return
         self._chunk_dev = (
             torch.from_numpy(atom_ids.astype(np.int32)).to(self.device),
             torch.from_numpy(np.ascontiguousarray(
@@ -445,8 +365,7 @@ class ArrayMatchEngine:
         tr = _obstrace.TRACER
         if not tr.enabled:
             return self._match_impl(atom_ids, speeds, start)
-        tok = tr.begin("accel.match", cat="accel", rows=len(atom_ids),
-                       backend=self.backend)
+        tok = tr.begin("accel.match", cat="accel", rows=len(atom_ids))
         try:
             res = self._match_impl(atom_ids, speeds, start)
         except NeedWiderExport:
@@ -474,12 +393,7 @@ class ArrayMatchEngine:
             # the kernel reads the live rows straight out of the bound chunk
             rows = (start, None if len(idx) == n else idx)
         while True:
-            if self.backend == "numpy" and len(idx) <= 24:
-                # tiny live subset: the per-row scan beats a dozen NumPy
-                # calls on 10-element arrays
-                res = match_chunk_seq(sub_ids, sub_speeds, st)
-            else:
-                res = self._match_guarded(sub_ids, sub_speeds, st, rows)
+            res = self._match_guarded(sub_ids, sub_speeds, st, rows)
             # a truncated atom's row that exhausted its capped prefix might
             # have a deeper live slot: widen the cap and re-match (exact;
             # needs ~cap fills inside one segment, so it is rare)
@@ -507,44 +421,40 @@ class ArrayMatchEngine:
                        st: MatchState, rows=None) -> MatchResult:
         """Vectorized match with divergence guards.  Non-finite speeds are
         an *input* problem: the segment is served by the sequential oracle
-        (bit-identical semantics) with a counter, on every backend.  A
-        backend exception or an implausible result degrades the same way only
-        on the host backends (``numpy``, and ``torch`` on ``device="cpu"``).
-        With the mirror on a CUDA device both stop the run: an in-kernel
+        (bit-identical semantics) with a counter, on every device.  A
+        matcher exception or an implausible result degrades the same way only
+        on ``device="cpu"``.  With the mirror on a CUDA device both stop the run: an in-kernel
         fault surfaces as a plain ``RuntimeError`` at the next sync, and a
         wrong result means a wrong kernel — neither may finish on the host
         with the same JCTs and nobody the wiser.
         :class:`~repro_torch.accel.kernels.build.KernelError` (build, load,
         launch) leaves on every device.  ``rows`` is ``(start, live)``: the
         rows' place in the bound chunk (None: upload them)."""
-        on_card = self.device is not None and self.device.type == "cuda"
+        on_card = self.device.type == "cuda"
         if not bool(np.isfinite(sub_speeds).all()):
             # corrupted speed readings: the sequential scan's comparisons
             # reject NaN/inf rows exactly like the scalar engine's checkin
-            # does, while backend kernels aren't audited for non-finite
+            # does, while the kernel isn't audited for non-finite
             # inputs — serve the whole segment scalar-side
             return self._degrade("nonfinite", sub_ids, sub_speeds, st)
         try:
-            if self.backend == "torch":
-                t0 = time.perf_counter()
-                if rows is None:
-                    res = match_chunk_torch(sub_ids, sub_speeds, st)
-                else:
-                    res = match_chunk_torch(
-                        sub_ids, sub_speeds, st, on_device=self._chunk_dev,
-                        start=rows[0], live=rows[1])
-                dt = time.perf_counter() - t0
-                m = len(sub_ids)
-                self.matcher_s += dt
-                self.fixedpoint_rounds += res.rounds
-                self.matcher_calls += 1
-                self.matcher_rows += m
-                self.matcher_max_rows = max(self.matcher_max_rows, m)
-                if m > _match_segment.GRID_ROWS:
-                    self.matcher_grid_calls += 1
-                    self.matcher_grid_s += dt
+            t0 = time.perf_counter()
+            if rows is None:
+                res = match_chunk_torch(sub_ids, sub_speeds, st)
             else:
-                res = match_chunk(sub_ids, sub_speeds, st)
+                res = match_chunk_torch(
+                    sub_ids, sub_speeds, st, on_device=self._chunk_dev,
+                    start=rows[0], live=rows[1])
+            dt = time.perf_counter() - t0
+            m = len(sub_ids)
+            self.matcher_s += dt
+            self.fixedpoint_rounds += res.rounds
+            self.matcher_calls += 1
+            self.matcher_rows += m
+            self.matcher_max_rows = max(self.matcher_max_rows, m)
+            if m > _match_segment.GRID_ROWS:
+                self.matcher_grid_calls += 1
+                self.matcher_grid_s += dt
         except KernelError:
             raise
         except Exception:

@@ -28,15 +28,17 @@ Remaining arrays:
   *uncovered* and must take the scalar ``checkin`` path (the MISS protocol
   that triggers Venn's lazy replan).
 
-**Device mirror.**  When the state is built with a ``device``, ``cand_req``
-(int32), ``cand_lo`` / ``cand_hi`` (float64 — ``±inf`` bands survive as
-they are), ``has_cand`` and ``truncated`` are kept a second time as tensors
-on that device (``d_cand_req`` ...), beside the authoritative NumPy arrays:
-``_lower`` (build and ``expand``) uploads them whole, ``patch`` uploads the
-dirty rows with one ``index_copy_`` per array.  ``remaining`` stays a host
-array — it moves once per applied grant, from the Python grant loop — and
-the matcher uploads it at each call.  Everything the drain reads per
-check-in (``first_miss``, ``has_cand_list``, ``request_index``) is host code.
+**Device mirror.**  When the state is built with a ``device``, the three
+arrays the matcher reads, ``cand_req`` (int32) and ``cand_lo`` / ``cand_hi``
+(float64 — ``±inf`` bands survive as they are), are kept a second time as
+tensors on that device (``d_cand_req``, ``d_cand_lo``, ``d_cand_hi``),
+beside the authoritative NumPy arrays: ``_lower`` (build and ``expand``)
+uploads them whole, ``patch`` uploads the dirty rows with one
+``index_copy_`` per array.  ``has_cand`` and ``truncated`` stay host arrays:
+the engine reads them on the host.  ``remaining`` stays a host array too —
+it moves once per applied grant, from the Python grant loop — and the
+matcher uploads it at each call.  Everything the drain reads per check-in
+(``first_miss``, ``has_cand_list``, ``request_index``) is host code.
 
 The state is **rebuilt incrementally**: a rebuild happens only when the
 scheduler's ``match_token()`` changes (a VENN-SCHED recompile, a pending-order
@@ -73,10 +75,9 @@ class MatchState:
 
     __slots__ = ("requests", "remaining", "cand_req", "cand_lo", "cand_hi",
                  "covered", "has_cand", "has_cand_list",
-                 "all_covered", "miss_free", "truncated", "token", "kcap",
+                 "all_covered", "truncated", "token", "kcap",
                  "export_limit", "_rows", "_req_ix", "_rem_buf",
-                 "device", "d_cand_req", "d_cand_lo", "d_cand_hi",
-                 "d_has_cand", "d_truncated")
+                 "device", "d_cand_req", "d_cand_lo", "d_cand_hi")
 
     def __init__(self, requests: List[JobRequest],
                  rows: List[Optional[List[Tuple[int, float, float]]]],
@@ -84,15 +85,11 @@ class MatchState:
                  export_limit: Optional[int] = None,
                  device: Optional[torch.device] = None):
         # device: where the mirror tensors live; None keeps the state
-        # host-only (the NumPy backend and verify_against's truth copy)
+        # host-only (verify_against's truth copy)
         self.device = torch.device(device) if device is not None else None
         self.requests = requests
         self.covered = covered
         self.all_covered = bool(covered.all()) if len(covered) else False
-        # set by the engine at build: True when no interned atom can MISS
-        # (all covered AND the state spans the full id space), letting the
-        # drain skip the per-segment MISS scan outright
-        self.miss_free = False
         self.token = token
         self.export_limit = export_limit
         self._rows = rows
@@ -175,14 +172,11 @@ class MatchState:
         dev = self.device
         if dev is None:
             self.d_cand_req = self.d_cand_lo = self.d_cand_hi = None
-            self.d_has_cand = self.d_truncated = None
             return
         self.d_cand_req = torch.from_numpy(
             self.cand_req.astype(np.int32)).to(dev)
         self.d_cand_lo = torch.from_numpy(self.cand_lo).to(dev)
         self.d_cand_hi = torch.from_numpy(self.cand_hi).to(dev)
-        self.d_has_cand = torch.from_numpy(self.has_cand).to(dev)
-        self.d_truncated = torch.from_numpy(self.truncated).to(dev)
 
     def _upload_rows(self, aids: List[int]) -> None:
         """Copy the rows ``aids`` of every mirrored array to the device: one
@@ -198,10 +192,6 @@ class MatchState:
             0, d_ix, torch.from_numpy(self.cand_lo[ix]).to(dev))
         self.d_cand_hi.index_copy_(
             0, d_ix, torch.from_numpy(self.cand_hi[ix]).to(dev))
-        self.d_has_cand.index_copy_(
-            0, d_ix, torch.from_numpy(self.has_cand[ix]).to(dev))
-        self.d_truncated.index_copy_(
-            0, d_ix, torch.from_numpy(self.truncated[ix]).to(dev))
 
     # ------------------------------------------------------------------ patch
 
@@ -372,13 +362,19 @@ class MatchState:
     def num_requests(self) -> int:
         return len(self.requests)
 
-    def first_miss(self, atom_ids: np.ndarray) -> int:
+    def first_miss(self, atom_ids: np.ndarray, num_atoms: int) -> int:
         """Index of the first check-in whose atom the state does not cover
         (relative to ``atom_ids``), or ``-1`` if every atom is covered.
 
         Ids beyond the state's atom range count as uncovered: they were
-        interned after the plan compiled, the definition of a MISS."""
+        interned after the plan compiled, the definition of a MISS.
+        ``num_atoms`` is the size of the id space now (the scheduler's
+        index can intern ids without a version bump): when the state covers
+        every atom and spans that whole space, no row can MISS and the scan
+        is skipped."""
         A = self.num_atoms
+        if self.all_covered and num_atoms == A:
+            return -1
         miss = (atom_ids >= A) | ~self.covered[np.minimum(atom_ids, A - 1)] \
             if A else np.ones(len(atom_ids), dtype=bool)
         idx = np.argmax(miss)
@@ -397,21 +393,20 @@ class MatchState:
         return self._req_ix.get(id(req))
 
     def to_numpy(self) -> dict:
-        """The state's arrays as NumPy, read back from the device mirror
-        where there is one (the inverse of :func:`match_state_from_numpy`)."""
+        """The state's arrays as NumPy, the candidate matrices read back from
+        the device mirror where there is one (the inverse of
+        :func:`match_state_from_numpy`)."""
         if self.device is None:
             cand_req, lo, hi = self.cand_req, self.cand_lo, self.cand_hi
-            has_cand, truncated = self.has_cand, self.truncated
         else:
             cand_req = self.d_cand_req.cpu().numpy().astype(np.int64)
             lo = self.d_cand_lo.cpu().numpy()
             hi = self.d_cand_hi.cpu().numpy()
-            has_cand = self.d_has_cand.cpu().numpy()
-            truncated = self.d_truncated.cpu().numpy()
         return {"cand_req": cand_req.copy(), "cand_lo": lo.copy(),
                 "cand_hi": hi.copy(), "remaining": self.remaining.copy(),
-                "covered": self.covered.copy(), "has_cand": has_cand.copy(),
-                "truncated": truncated.copy(), "kcap": self.kcap}
+                "covered": self.covered.copy(),
+                "has_cand": self.has_cand.copy(),
+                "truncated": self.truncated.copy(), "kcap": self.kcap}
 
 
 def match_state_from_numpy(arrays: dict, device) -> MatchState:
@@ -439,7 +434,6 @@ def match_state_from_numpy(arrays: dict, device) -> MatchState:
     st.truncated = np.array(arrays["truncated"], dtype=bool)
     st.kcap = int(arrays["kcap"])
     st.all_covered = bool(st.covered.all()) if len(st.covered) else False
-    st.miss_free = False
     st.token = ("from_numpy",)
     st.export_limit = None
     st.requests = [None] * len(st.remaining)

@@ -129,6 +129,13 @@ class BaseScheduler:
 
     # ---- array-engine hooks -----------------------------------------------
 
+    @property
+    def plan_dirty(self) -> bool:
+        """Whether the decision state waits on a lazy replan, which the next
+        ``checkin`` or ``prepare_match`` runs.  Baselines keep no lazily
+        compiled plan: never."""
+        return False
+
     def prepare_match(self, now: float) -> None:
         """Baselines keep no lazily-compiled plan — nothing to refresh."""
 

@@ -257,6 +257,13 @@ class VennScheduler(BaseScheduler):
 
     # ---------------------------------------------------- array-engine hooks
 
+    @property
+    def plan_dirty(self) -> bool:
+        """Whether the plan is stale (a request arrived or completed since
+        the last replan): the next ``checkin`` or ``prepare_match``
+        replans."""
+        return self._plan_dirty
+
     def prepare_match(self, now: float) -> None:
         """Make the compiled decision state current (lazy replan), exactly as
         the first ``checkin`` of a drain segment would."""

@@ -129,12 +129,10 @@ class Simulator:
         if engine in (None, "python"):
             self.engine = None
         elif engine == "array":
-            # the torch engine on ``device`` (None: cuda:0, and an error if
+            # the matcher on ``device`` (None: cuda:0, and an error if
             # there is none; "cpu" only when the caller asks for it)
             from ..accel.engine import ArrayMatchEngine
-            from ..device import resolve_device
-            self.engine = ArrayMatchEngine(backend="torch",
-                                           device=resolve_device(device))
+            self.engine = ArrayMatchEngine(device=device)
         elif hasattr(engine, "prepare") and hasattr(engine, "match"):
             self.engine = engine            # a pre-configured engine instance
         else:
@@ -175,10 +173,10 @@ class Simulator:
         self.event_seconds = [0.0] * len(EVENT_KINDS)  # their handling, by kind
         self.grants = 0               # _grant calls, and their wall time
         self.grant_seconds = 0.0
-        self.scalar_segments = 0      # array drain's scalar route: segments
-        self.scalar_rows = 0          # of _drain_array_scalar, their rows,
-        self.head_misses = 0          # head-miss checkins, and the self time
-        self.scalar_seconds = 0.0     # of both (less grants and replans)
+        self.scalar_segments = 0      # array drain's scalar route: calls of
+        self.scalar_rows = 0          # _drain_array_scalar, their rows less
+        self.head_misses = 0          # MISS rows, the MISS rows, and their
+        self.scalar_seconds = 0.0     # self time (less grants and replans)
         self.vector_segments = 0      # segments the matcher decided (one
         self.vector_rows = 0          # engine.match each), and their rows
         self.idle_skips = 0           # idle skips, the rows they skipped,
@@ -519,47 +517,22 @@ class Simulator:
             if clocked:
                 self.drain_segments += 1
             aids_np = ck.atom_ids
-            # classify() interns new atom ids for freshly realized capability
-            # combinations WITHOUT bumping index.version, so miss-freedom
-            # additionally requires the id space not to have grown since the
-            # state was built
-            if state.miss_free and index.num_atoms == state.num_atoms:
-                miss = -1                       # no atom can MISS: skip scan
-            else:
-                miss = state.first_miss(aids_np[cursor:hi])
-            if miss == 0:
-                # uncovered atom at the segment head: one scalar checkin,
-                # which replans mid-drain exactly like the scalar path
-                if clocked:
-                    t = perf()
-                    mark = (self.grant_seconds, sched.replan_seconds,
-                            self.inline_seconds)
-                i = cursor
-                speed = self._speed[i]
-                req = sched.checkin(self._aids[i], self._cpu[i],
-                                    self._mem[i], speed, dev_t)
-                engine.invalidate()
-                self._cursor = i + 1
-                self.checkins_seen += 1
-                self.now = dev_t
-                if not (req is None or req.granted >= req.demand
-                        or req.complete_time is not None):
-                    grant(req, i, dev_t, speed)
-                if clocked:
-                    self.head_misses += 1
-                    self._note_scalar(t, mark)
-                continue
-            if miss > 0:
+            # rows from the first MISS on take the scalar route, which takes
+            # the MISS itself (its checkin replans mid-drain)
+            miss = state.first_miss(aids_np[cursor:hi], index.num_atoms)
+            if miss >= 0:
                 hi = cursor + miss
             if hi - cursor < SCALAR_SEG_ROWS:
                 if clocked:
                     t = perf()
                     mark = (self.grant_seconds, sched.replan_seconds,
                             self.inline_seconds)
-                self._drain_array_scalar(state, cursor, heap_t, bound)
+                missed = self._drain_array_scalar(state, cursor, heap_t,
+                                                  bound)
                 if clocked:
                     self.scalar_segments += 1
-                    self.scalar_rows += self._cursor - cursor
+                    self.scalar_rows += self._cursor - cursor - missed
+                    self.head_misses += missed
                     self._note_scalar(t, mark)
                 continue
             try:
@@ -616,26 +589,26 @@ class Simulator:
             - (self.inline_seconds - mark[2])
 
     def _drain_array_scalar(self, state, cursor: int, heap_t: float,
-                            bound: float) -> None:
+                            bound: float) -> bool:
         """Scalar tail of the array drain for segments too small to amortize
         a vectorized match: per-row ``checkin`` with the state's candidate
         bitmap standing in for the scheduler's liveness list (same dead-atom
-        set: covered atoms with no candidate slot; uncovered atoms were
-        bounded out by the MISS scan).  Grants are mirrored into the state so
-        later vectorized segments stay exact; if a grant surfaces a request
-        the state does not know (a mid-row replan), the state is invalidated
-        and the caller's next ``prepare`` rebuilds it.
+        set: covered atoms with no candidate slot).  Grants are mirrored
+        into the state so later vectorized segments stay exact; if a grant
+        surfaces a request the state does not know (a mid-row replan), the
+        state is invalidated and the caller's next ``prepare`` rebuilds it.
 
         A control event armed before the next row is handled here when it is
         inert (:meth:`_inert`), and the route goes on past the segment's
         bound to the next rows; the first event that is not inert ends
-        the route, as do the first row past ``bound``, the chunk's end, a
-        fill that empties ``_open``, and the first row whose atom the state
-        does not cover (a MISS, bounded out of the segment and met only past
-        it: the caller's head-miss path takes it).  After inline events the
-        route also ends where the rows before the next event or ``bound``
-        fill a vectorized segment, so that the caller routes them to the
-        matcher as it would have after handling those events itself."""
+        the route, as do the first row past ``bound``, the chunk's end and a
+        fill that empties ``_open``.  A row whose atom the state does not
+        cover (a MISS) is the route's last: its ``checkin`` replans, which
+        the state does not follow, so the state is invalidated after it.
+        After inline events the route also ends where the rows before the
+        next event or ``bound`` fill a vectorized segment, so that the
+        caller routes them to the matcher as it would have after handling
+        those events itself.  Returns whether the route took a MISS."""
         heap = self._heap
         sched = self.sched
         grant = self._grant
@@ -649,6 +622,7 @@ class Simulator:
         # or end the route
         stop_t = heap_t if heap_t < bound else bound
         i = cursor
+        missed = False
         while i < n_times:
             t_i = times[i]
             if t_i > stop_t:
@@ -662,10 +636,11 @@ class Simulator:
                     break                       # a run for the matcher
             aid = aids[i]
             if aid >= n_cov or not has_cand[aid]:
-                if aid >= n_cov or not covered[aid]:
-                    break                       # a MISS
-                i += 1                          # dead atom
-                continue
+                if aid < n_cov and covered[aid]:
+                    i += 1                      # dead atom
+                    continue
+                missed = True                   # a MISS: its checkin
+                n_times = i + 1                 # replans, so it ends the route
             speed = spd[i]
             req = sched.checkin(aid, cpu[i], mem[i], speed, t_i)
             i += 1
@@ -683,10 +658,13 @@ class Simulator:
             top = heap[0][0]                    # a grant only pushes
             if top < stop_t:
                 stop_t = top
+        if missed:
+            self.engine.invalidate()
         self._cursor = i
         self.checkins_seen += i - cursor
         if times[i - 1] > self.now:             # the last row came after
             self.now = times[i - 1]             # the last inline event
+        return missed
 
     def _inert(self, t: float, kind: int, payload) -> bool:
         """Whether the control event ``(t, kind, payload)``, handled now,
@@ -738,7 +716,7 @@ class Simulator:
                 if tr.enabled:
                     tr.complete(_EVENT_SPAN[RESPONSE], tr.us(te), dt * 1e6,
                                 cat="sim", sim_t=t)
-            if token is not None and (getattr(sched, "_plan_dirty", False)
+            if token is not None and (sched.plan_dirty
                                       or sched.match_token() != token):
                 return False
         return True

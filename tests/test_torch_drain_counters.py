@@ -77,8 +77,11 @@ def test_counts_add_up(traced):
     assert p["vector_rows"] + p["scalar_rows"] + p["head_misses"] \
         == sim.checkins_seen
     assert p["vector_segments"] > 0 and p["scalar_segments"] > 0
+    # every segment is prepared once (a re-match after a wider export is
+    # prepared again), and the scalar route takes at most one MISS a call
     assert p["drain_segments"] >= p["vector_segments"] \
-        + p["scalar_segments"] + p["head_misses"]
+        + p["scalar_segments"]
+    assert 0 < p["head_misses"] <= p["scalar_segments"]
     assert p["idle_rows"] <= sim.checkins_skipped
     assert p["idle_skips"] > 0
     for kind in EVENT_KINDS:

@@ -44,13 +44,18 @@ class _FlooredStream:
 class _Spy:
     """Wraps the array simulator's inert test, its inline handler, its
     scalar route and its scheduler's ``checkin`` on the instance, and counts
-    the edges they meet."""
+    the edges they meet.  For VENN a check-in whose atom its dispatch table
+    does not cover is a MISS (``miss``); a route that takes one after rows
+    of its own counts as ``mid_route_miss``, and the clock right after each
+    route that took a MISS goes to ``miss_clocks`` beside the MISS row's
+    time."""
 
     def __init__(self, sim: Simulator):
         self.sim = sim
         self.seen: dict = {}
         self.last_inline_t = None
         self.last_inert = None
+        self.miss_clocks: list = []
         inert, inline = sim._inert, sim._inline_events
         route, checkin = sim._drain_array_scalar, sim.sched.checkin
 
@@ -82,16 +87,24 @@ class _Spy:
 
         def spy_route(state, cursor, heap_t, bound):
             self.last_inline_t = None
-            route(state, cursor, heap_t, bound)
+            missed = route(state, cursor, heap_t, bound)
             i, times = sim._cursor, sim._times
             if (self.last_inline_t is not None and i < len(times)
                     and self.last_inline_t <= bound < times[i]):
                 self.note("pause_after_inline")
+            if missed:
+                if i - 1 > cursor:
+                    self.note("mid_route_miss")
+                self.miss_clocks.append((sim.now, times[i - 1]))
+            return missed
 
         def spy_checkin(aid, cpu, mem, speed, now):
             heap = sim._heap
             if heap and heap[0][0] == now:
                 self.note("tie")
+            dispatch = getattr(sim.sched, "dispatch", None)
+            if dispatch is not None and not dispatch.covers(aid):
+                self.note("miss")
             return checkin(aid, cpu, mem, speed, now)
 
         sim._inert = spy_inert
@@ -131,6 +144,17 @@ def _build(case, engine):
             on_response(*a)
             sched._plan_dirty = True
         sched.on_response = dirtying
+    if case.get("refuse_miss"):
+        # a scheduler that turns away the device of each MISS (its check-in
+        # still replans), so that a MISS row grants nothing and only the
+        # drain sets the clock to its time
+        checkin = sched.checkin
+
+        def refusing(aid, cpu, mem, speed, now):
+            due = sched.sched_invocations + sched.plan_dirty
+            req = checkin(aid, cpu, mem, speed, now)
+            return None if sched.sched_invocations > due else req
+        sched.checkin = refusing
     return Simulator(jobs, sched, cfg=SimConfig(max_time=horizon),
                      engine=engine, record_grants=True, device="cpu", **kw)
 
@@ -194,6 +218,11 @@ CASES = {
     "replan-on-response": dict(sched="venn", jobs=_small(12), days=2.0,
                                dirty_on_response=True, edge="guard",
                                pop=dict(seed=19, base_rate=2.0)),
+    # a MISS met by the scalar route after rows of the same call, its
+    # device turned away
+    "miss-mid-route": dict(sched="venn", jobs=_small(13, num_jobs=6),
+                           days=2.0, edge="mid_route_miss", refuse_miss=True,
+                           pop=dict(seed=33, base_rate=3.0)),
 }
 
 
@@ -223,6 +252,12 @@ def test_array_drain_with_inline_events_equals_python_drain(
     assert sim.now == ref.now
     assert 0 < sim.inline_events <= sim.event_counts[RESPONSE]
     assert spy.seen.get("inert", 0) >= sim.inline_events
+    if case["sched"] == "venn":
+        # the route takes every MISS, one a call, and ends on it with the
+        # clock at its row
+        assert sim.head_misses == spy.seen.get("miss", 0) \
+            == len(spy.miss_clocks) > 0
+        assert all(now == t for now, t in spy.miss_clocks), spy.miss_clocks
     edge = case.get("edge")
     if edge == "last_job":
         # the drain meets the response that completes the last round, finds

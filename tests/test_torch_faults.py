@@ -223,8 +223,7 @@ def test_corrupt_speeds_degrade_like_the_reference_kernel_backend():
 def test_replan_budget_serves_stale_plans_and_completes():
     from repro_torch.accel.engine import ArrayMatchEngine
     _, spec = tiny_pair("baseline_even")
-    engine = ArrayMatchEngine(backend="torch", device="cpu",
-                              replan_budget_s=600.0)
+    engine = ArrayMatchEngine(device="cpu", replan_budget_s=600.0)
     m = _make_sim(P, spec, engine=engine).run()
     assert math.isfinite(m.avg_jct) and len(m.jcts) == spec.jobs.num_jobs
     assert engine.stale_plans_served > 0

@@ -18,8 +18,8 @@ from repro.accel.engine import (match_chunk as ref_match_chunk,
                                 match_chunk_seq as ref_match_chunk_seq)
 from repro.accel.state import MatchState as RefMatchState
 from repro_torch.accel.engine import (ArrayMatchEngine, DeviceMatchError,
-                                      MatchResult, match_chunk,
-                                      match_chunk_seq, match_chunk_torch)
+                                      MatchResult, match_chunk_seq,
+                                      match_chunk_torch)
 from repro_torch.accel.kernels.build import KernelLaunchError
 from repro_torch.accel.match import match_fixed_point
 from repro_torch.accel.state import MatchState, match_state_from_numpy
@@ -51,9 +51,8 @@ def test_match_chunk_torch_equals_reference_matchers(seed):
     _same(got, ref_match_chunk_seq(aids, speeds, ref_state))
     _same(got, ref_match_chunk(aids, speeds, ref_state))
     _same(got, ref_match_chunk_jax(aids, speeds, ref_state, use_kernel=True))
-    # the port's own host matchers agree on the carried-across state too
+    # the port's own oracle agrees on the carried-across state too
     _same(got, match_chunk_seq(aids, speeds, state))
-    _same(got, match_chunk(aids, speeds, state))
 
 
 def test_match_chunk_torch_tensors_already_on_device():
@@ -235,8 +234,30 @@ def test_engine_uses_bound_chunk_slices():
           a.match(live[:64], speeds[:64]))
 
 
-def test_unknown_backend_rejected_and_numpy_backend_has_no_device():
-    with pytest.raises(ValueError, match="backend"):
-        ArrayMatchEngine(backend="jax")
-    eng = ArrayMatchEngine(backend="numpy")
-    assert eng.device is None
+def test_engine_on_the_cpu_runs_the_kernels_plain_version(monkeypatch):
+    """One matcher per device: on ``device="cpu"`` a segment goes through
+    ``match_segment_ref`` and never reaches the kernel's launch; without a
+    device the engine resolves ``cuda:0``, or raises where there is none."""
+    from repro_torch.accel.kernels import match_segment as ms
+    calls = []
+    ref = ms.match_segment_ref
+
+    def counted(*a, **k):
+        calls.append(1)
+        return ref(*a, **k)
+
+    monkeypatch.setattr(ms, "match_segment_ref", counted)
+    ms.reset_launches()
+    eng = ArrayMatchEngine(device="cpu")
+    assert eng.device == CPU
+    eng.prepare(_fake_engine_sched([[(FakeReq(5), -math.inf, math.inf)]]),
+                0.0)
+    res = eng.match(np.zeros(30, dtype=np.int64), np.ones(30))
+    assert res.granted.tolist() == [True] * 5 + [False] * 25
+    assert len(calls) == 1 and eng.matcher_calls == 1
+    assert ms.launches == 0
+    if torch.cuda.is_available():
+        assert ArrayMatchEngine().device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            ArrayMatchEngine()

@@ -83,7 +83,7 @@ def test_port_equals_reference_with_tiering_and_contention():
     _assert_same(ref, got)
     _assert_same(ref, _run_port(jobs_kw, pop_kw, 4.0, "venn", "python"))
     eng, ref_eng = got[1].engine, ref[1].engine
-    assert eng.backend == "torch" and str(eng.device) == "cpu"
+    assert str(eng.device) == "cpu"
     assert eng.segments == ref_eng.segments > 0
     assert (eng.rebuilds, eng.patches) == (ref_eng.rebuilds, ref_eng.patches)
     assert eng.fixedpoint_rounds > 0

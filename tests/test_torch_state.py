@@ -133,7 +133,7 @@ def test_from_scheduler_expand_and_consume_keep_the_mirror(seed):
     port = MatchState.from_scheduler(FakeSched(slots), ("t",), kcap=4,
                                      device=CPU)
     assert_mirror_equals(port, ref)
-    assert port.truncated.any() and port.d_truncated.any()
+    assert port.truncated.any() and port.to_numpy()["truncated"].any()
     while ref.expand():
         assert port.expand()
         assert_mirror_equals(port, ref)
@@ -165,6 +165,29 @@ def test_carry_across_round_trip(seed):
         np.testing.assert_array_equal(ref.remaining, before)
 
 
+@pytest.mark.parametrize("uncovered,ids,num_atoms,want", [
+    (False, [0, 2, 1, 2], 3, -1),       # every atom covered: no scan
+    (False, [0, 2, 3, 1], 4, 2),        # atom 3 interned after the build
+    (False, [3, 0], 4, 0),
+    (True, [0, 2, 1, 0], 3, 2),         # atom 1 not covered by the plan
+    (True, [0, 2, 0], 3, -1),
+])
+def test_first_miss_takes_atoms_the_state_does_not_cover(uncovered, ids,
+                                                         num_atoms, want):
+    """``first_miss`` skips its scan only while every atom is covered and
+    the id space has not grown since the build; otherwise it returns the
+    reference's answer."""
+    req = FakeReq(2)
+    slots = [[(req, -math.inf, math.inf)], [], [(req, 0.5, 2.0)]]
+    if uncovered:
+        slots[1] = None
+    ref = RefMatchState.from_scheduler(FakeSched(slots), ("t",))
+    port = MatchState.from_scheduler(FakeSched(slots), ("t",), device=CPU)
+    assert port.all_covered is not uncovered
+    ids = np.array(ids, dtype=np.int64)
+    assert port.first_miss(ids, num_atoms) == ref.first_miss(ids) == want
+
+
 def test_host_only_state_has_no_mirror():
     st = MatchState.from_scheduler(
         FakeSched([[(FakeReq(2), -math.inf, math.inf)]]), ("t",))
@@ -183,7 +206,7 @@ def test_pickle_drops_state_and_device_tensors():
     assert eng.state is not None and eng._chunk_dev is not None
     restored = pickle.loads(pickle.dumps(eng))
     assert restored.state is None and restored._chunk_dev is None
-    assert restored.device == CPU and restored.backend == "torch"
+    assert restored.device == CPU
     assert not any(isinstance(v, torch.Tensor)
                    for v in restored.__dict__.values())
     # unbound after restore: start= is ignored and rows are uploaded

@@ -28,6 +28,8 @@ class FakeReq:
 class FakeSched:
     """The minimum a ``MatchState`` is built from."""
 
+    plan_dirty = False      # the scheduler protocol's lazy-replan flag
+
     def __init__(self, slots):
         self._slots = slots
 
