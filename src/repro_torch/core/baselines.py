@@ -18,7 +18,9 @@ Every scheduler implements the same interface the simulator drives:
     on_request(request, now)   — a job submitted a round request
     on_complete(request, now)  — a request finished/aborted
     assign(device, now)        — a device checked in; return a JobRequest or None
-    on_response(...)           — response feedback (Venn profiles tiers)
+    on_response(...)           — response feedback (Venn profiles tiers),
+                                 recorded for the next replan only (see
+                                 ``bind``)
 
 plus the vectorized check-in fast path shared by every scheduler:
 
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import math
 import random
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -60,6 +62,24 @@ class BaseScheduler:
         # wall time in replans, kept while observability is on (VENN's
         # _reschedule; the baselines have no replan)
         self.replan_seconds = 0.0
+        self._before_replan: Optional[Callable[[float], None]] = None
+
+    def bind(self, deliver: Callable[[float], None]) -> None:
+        """Take the simulator's delivery hook.  The simulator holds the
+        responses of granted devices until something reads them;
+        ``deliver(t)`` applies (``on_response``) those due before ``t``, and
+        a replan at ``t`` calls it first.  A scheduler serves one simulator:
+        a second bind raises.  The hook is not pickled; the simulator binds
+        its restored copy again."""
+        if self._before_replan is not None:
+            raise RuntimeError("the scheduler is bound to a simulator "
+                               "already")
+        self._before_replan = deliver
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["_before_replan"] = None
+        return d
 
     # ---- simulator hooks --------------------------------------------------
 

@@ -118,7 +118,7 @@ class VennScheduler(BaseScheduler):
         new process.  Pickle it as (request, decision) pairs; the requests
         are the same objects as in ``self.pending``, so the pickle memo keeps
         identity and ``__setstate__`` can re-key by the *restored* ids."""
-        d = dict(self.__dict__)
+        d = super().__getstate__()
         d["tier_decisions"] = [(req, dec) for req, dec in
                                ((r, self.tier_decisions.get(id(r)))
                                 for r in self.pending) if dec is not None]
@@ -397,6 +397,8 @@ class VennScheduler(BaseScheduler):
     def _reschedule(self, now: float) -> None:
         self.sched_invocations += 1
         self._plan_dirty = False
+        if self._before_replan is not None:
+            self._before_replan(now)        # the responses due before now
         # observability: the replan is the scheduler's hotspot at scale — span the
         # whole VENN-SCHED run plus its sub-phases (supply absorb, IRS,
         # tier decisions, plan lowering) so traces show where replans go

@@ -108,12 +108,17 @@ class JobRequest:
     alloc_complete_time: Optional[float] = None
     complete_time: Optional[float] = None
     aborted: int = 0                   # times this round has been aborted/retried
-    # --- simulator-internal response batching (sorted arrival arrays) ---
-    # pending responses live in a per-request min-heap; the simulator's global
-    # event heap holds at most ONE armed entry per request (at ``resp_t``)
-    # instead of one entry per granted device.
+    # --- simulator-internal response buffer (sim/simulator.py) ---
+    # granted devices' responses wait here as data, delivered when something
+    # reads them; the simulator's event heap holds at most ONE entry per
+    # request, at the response that completes its round (``resp_t``)
     resp_buf: Optional[List[tuple]] = field(default=None, repr=False)
-    resp_t: float = float("inf")       # armed head response time (inf = none)
+    resp_new: Optional[List[tuple]] = field(default=None, repr=False)
+    # the time of each entry the one-event-a-response model armed
+    resp_armed: Optional[List[float]] = field(default=None, repr=False)
+    resp_t: float = float("inf")       # completing response's time (inf = none)
+    resp_ties: int = 0                 # of those entries, the ones at the
+    #                                    deadline's time armed before the fill
 
     @property
     def remaining(self) -> int:

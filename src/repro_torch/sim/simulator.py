@@ -10,15 +10,26 @@ concern, §3 — the simulator models it with quorum + deadline + retry).
 Control events (heapq-ordered by time, then a monotone sequence id):
 
 * ``JOB_ARRIVAL``     — job enters, submits round-0 request
-* ``RESPONSE``        — the next granted device of one request reports back
+* ``RESPONSE``        — the response that completes one request's round
 * ``DEADLINE``        — response-collection deadline for one request attempt
+* ``FAULT``           — a blackout begins (revokes responses in flight)
 
-RESPONSE events are **batched per request**: granted devices land in a
-per-request min-heap of (response-time, device) rows and the control heap
-holds at most one *armed* entry per request (its earliest pending response).
-Processing an armed entry pops the per-request heap and re-arms for the next
-row, so the control heap stays O(outstanding requests) instead of
-O(outstanding granted devices) — the grant/response floor of the heap traffic.
+**Responses are data, delivered when something reads them.**  A granted
+device's response waits in its request's buffer, a min-heap of (response
+time, sequence, device, ...) rows.  Its effects (``sched.on_response``, the
+request's counts) are read in a few places only, and each delivers the
+responses due there, in the order handling them one event each would have:
+before a replan (the hook the scheduler is bound to), at a request's fill,
+at its deadline and at its completing response, at a blackout's start, and
+at every pause of :meth:`Simulator.step_until`, where the state and the
+clock are then what one event a response left.  A round needs one control
+entry at most: when the request fills, every one of its responses is in the
+buffer, so the one at which the responses reach quorum is known and is armed
+as its ``RESPONSE`` entry, unless the deadline comes first.  At the
+deadline's very time the event model handled first the responses whose
+entries it had armed before the fill pushed the deadline's; the deadline
+handles those itself.  So ``on_response`` may only record what the next
+replan reads: a call that marks the plan dirty raises.
 
 Device check-ins do **not** go through the heap: they arrive as time-sorted
 struct-of-arrays chunks (:class:`~repro_torch.sim.devices.DeviceChunk`) pulled from
@@ -37,10 +48,9 @@ interchangeable **drain engines** then consume the merged stream:
 * ``engine="array"`` — the :mod:`repro_torch.accel` engine: whole drain segments
   (check-in runs between control events) are matched in one vectorized call
   against a struct-of-arrays mirror of the scheduler state, and only granted
-  rows touch Python objects; short runs take a scalar route, which handles
-  in place the responses that cannot complete a round.  Grant sequences and
-  metrics are bit-identical to the scalar path; uncovered atoms fall back
-  to one scalar ``checkin`` (the MISS/replan protocol).
+  rows touch Python objects; short runs take a scalar route.  Grant
+  sequences and metrics are bit-identical to the scalar path; uncovered
+  atoms fall back to one scalar ``checkin`` (the MISS/replan protocol).
 
 Either way a ``Device`` object is only materialized for granted check-ins,
 and all grant side effects flow through the shared :meth:`Simulator._grant`.
@@ -83,14 +93,12 @@ _EVENT_SPAN = tuple("sim.event." + k for k in EVENT_KINDS)
 _PARTS = ("step_seconds", "grants", "grant_seconds", "scalar_segments",
           "scalar_rows", "head_misses", "scalar_seconds", "vector_segments",
           "vector_rows", "idle_skips", "idle_rows", "idle_seconds",
-          "drain_segments", "inline_events")
+          "drain_segments", "responses_delivered")
 
-
-def _round_complete(req: JobRequest, more: int = 0) -> bool:
-    """Whether ``req``'s round is complete once ``more`` responses beyond
-    those counted have arrived: quorum reached and the request filled."""
-    return req.responses + more >= req.quorum \
-        and req.alloc_complete_time is not None
+# raised when a delivery marks the plan dirty (see the module docstring)
+_DIRTY = ("on_response marked the plan dirty: the simulator delivers "
+          "responses where they are read, so response feedback may only "
+          "record what the next replan reads")
 
 
 @dataclass
@@ -183,11 +191,27 @@ class Simulator:
         self.idle_rows = 0            # and their self time (less the
         self.idle_seconds = 0.0       # chunk loads inside them)
         self.drain_segments = 0       # engine.prepare calls
-        self.inline_events = 0        # control events the array drain
-        #                               handled in place (_inline_events)
-        self.inline_seconds = 0.0     # their wall time, always kept: it is
-        #                               taken off the drain's (events are
-        #                               not drain time, wherever handled)
+        self.responses_delivered = 0  # responses delivered as data (never
+        #                               an event of their own)
+        self.delivery_seconds = 0.0   # wall time of the deliveries before
+        #                               replans, at fills and at pauses,
+        #                               always kept: it is taken off the
+        #                               drain's and the grants' time
+        # ---- responses in flight
+        self._awaiting: dict = {}     # live requests (their buffers), in
+        #                               submission order
+        self._due: List[float] = []   # the time of every response granted
+        #                               and not yet passed (_pass): where
+        #                               the event model had its entries,
+        self._gone: dict = {}         # less those it never had (time ->
+        #                               count), a response of a round over
+        #                               or revoked that it had not armed
+        scheduler.bind(self._deliver_before)
+
+    def __setstate__(self, d):
+        # the scheduler's hook is not pickled (BaseScheduler.__getstate__)
+        self.__dict__.update(d)
+        self.sched.bind(self._deliver_before)
 
     # ------------------------------------------------------------------ api
 
@@ -269,7 +293,7 @@ class Simulator:
         n_jobs = len(self.jobs)
         drain = self._drain_array if self.engine is not None \
             else self._drain_python
-        handle = (self._on_job_arrival, self._pop_response,   # by event kind
+        handle = (self._on_job_arrival, self._on_response_entry,  # by kind
                   self._on_deadline, self._on_blackout)
         perf = time.perf_counter
         obs_on = tr.enabled or reg.enabled
@@ -278,9 +302,9 @@ class Simulator:
             # ---- drain device check-ins until the heap takes priority ----
             t0 = perf()
             seen0 = self.checkins_seen
-            inline0 = self.inline_seconds
+            deliver0 = self.delivery_seconds
             stopped = drain(bound)
-            dt = perf() - t0 - (self.inline_seconds - inline0)
+            dt = perf() - t0 - (self.delivery_seconds - deliver0)
             self.drain_seconds += dt
             if obs_on:
                 rows = self.checkins_seen - seen0
@@ -298,18 +322,25 @@ class Simulator:
                                 rows=rows, engine=engine_name, sim_now=self.now)
             if stopped:
                 # a check-in crossed the bound; only a horizon crossing ends
-                # the simulation — a pause bound leaves it resumable
-                return bound >= max_time
+                # the simulation — a pause bound leaves it resumable, unless
+                # the event model ended at a response entry between the two
+                nxt = self._pause(bound)
+                return bound >= max_time \
+                    or max_time < nxt < self._times[self._cursor]
             # ---- one control event (peek first: an event past the bound
             # stays queued so a paused simulation loses nothing) ----
             if clocked:
                 te = perf()                 # the event's stopwatch, its pop
             if not heap:                    # from the heap included
-                return True
+                nxt = self._pause(bound)
+                return nxt == math.inf or nxt > max_time
             t = heap[0][0]
             if t > bound:
-                return t > max_time
+                # ends as the event model ended: at its next entry, which
+                # may be a response's
+                return min(t, self._pause(bound)) > max_time
             _, _, kind, payload = heappop(heap)
+            self._pass(t)
             self.now = t
             if not clocked:
                 handle[kind](payload)       # type: ignore[operator]
@@ -337,9 +368,11 @@ class Simulator:
         bookkeeping: ``engine.prepare`` less replan and mirror, the miss
         scan, the segment bounds, the matcher's host work around its call;
         what ``step_seconds`` holds besides the drain and the events is the
-        loop's own.  ``inline_events`` counts the events the array drain
-        handled in place (among ``events.response``); their time is in
-        ``event_seconds.response`` and not in ``drain_seconds``."""
+        loop's own.  ``responses_delivered`` counts the responses delivered
+        as data, beside ``events.response``, the completing responses;
+        the deliveries before replans and at pauses are timed in
+        ``delivery_seconds``, which is not in ``drain_seconds`` (those at a
+        deadline, a completion or a blackout are in their event's time)."""
         d = {k: getattr(self, k) for k in _PARTS}
         for kind, n, sec in zip(EVENT_KINDS, self.event_counts,
                                 self.event_seconds):
@@ -443,8 +476,8 @@ class Simulator:
                 if (req is None or req.granted >= req.demand
                         or req.complete_time is not None):
                     continue                           # device leaves unused
-                grant(req, i, dev_t, speed)
-                heap_t = heap[0][0]
+                if grant(req, i, dev_t, speed):        # a fill arms events
+                    heap_t = heap[0][0]
             self._cursor = cursor
             self.checkins_seen += cursor - seg_start - seg_dead
             self.checkins_skipped += seg_dead
@@ -466,10 +499,7 @@ class Simulator:
         check-ins in one :mod:`repro_torch.accel` call, then apply grants in time
         order, truncating exactly where a newly armed control event (or a
         fill that empties ``_open``) would have preempted the scalar loop.
-        A control event that cannot change what the drain has cached (a
-        RESPONSE that cannot complete its round, :meth:`_inert`) is handled
-        in place, between two rows, instead of in ``_loop``.  Outcomes are
-        bit-identical to ``_drain_python``."""
+        Outcomes are bit-identical to ``_drain_python``."""
         heap = self._heap
         engine = self.engine
         sched = self.sched
@@ -492,22 +522,23 @@ class Simulator:
                 continue
             heap_t = heap[0][0] if heap else inf
             dev_t = times[cursor]
-            if heap_t < dev_t:                  # control events first: the
-                if dev_t > bound or not self._inline_events(dev_t):
-                    return False                # loop takes one that is not
-                continue                        # inert; this loop re-prepares
+            if heap_t < dev_t:
+                return False                    # control events first
             if dev_t > bound:
                 return True                     # crossed the bound: stop
+            top = self._pass(dev_t)             # responses due: data
+            if heap_t < top:
+                top = heap_t
             if not self._open:
                 if clocked:
                     t = perf()
                     mark = (self.stream_seconds, self.checkins_skipped)
-                self._skip_idle(min(heap_t, bound))
+                self._skip_idle(min(top, bound))
                 if clocked:
                     self._note_idle(t, mark)
                 continue
             ck = self._chunk
-            seg_bound = heap_t if heap_t < bound else bound
+            seg_bound = top if top < bound else bound
             hi = int(np.searchsorted(ck.times, seg_bound, side="right"))
             if hi > cursor + SEG_ROWS:          # bound the dense working set
                 hi = cursor + SEG_ROWS
@@ -526,9 +557,8 @@ class Simulator:
                 if clocked:
                     t = perf()
                     mark = (self.grant_seconds, sched.replan_seconds,
-                            self.inline_seconds)
-                missed = self._drain_array_scalar(state, cursor, heap_t,
-                                                  bound)
+                            self.delivery_seconds)
+                missed = self._drain_array_scalar(state, cursor, top, bound)
                 if clocked:
                     self.scalar_segments += 1
                     self.scalar_rows += self._cursor - cursor - missed
@@ -542,7 +572,7 @@ class Simulator:
                 continue        # engine widened its cap: rebuild + re-match
             choice = res.choice
             seg_end = hi
-            top = heap_t
+            due = self._due
             for p in np.flatnonzero(res.granted).tolist():
                 i = cursor + p
                 if i >= seg_end:
@@ -556,10 +586,13 @@ class Simulator:
                     # would idle-skip the rest of the segment
                     seg_end = i + 1
                     break
-                new_top = heap[0][0]
+                new_top = due[0]
+                if filled and heap[0][0] < new_top:
+                    new_top = heap[0][0]        # only a fill arms events
                 if new_top < top:
-                    # a grant armed an event earlier than the old segment
-                    # bound: check-ins after it belong to the next segment
+                    # the grant's response (or the fill's events) came
+                    # before the old segment bound: check-ins after it
+                    # belong to the next segment
                     top = new_top
                     cut = int(np.searchsorted(ck.times, new_top,
                                               side="right"))
@@ -582,13 +615,13 @@ class Simulator:
 
     def _note_scalar(self, t0: float, mark: tuple) -> None:
         """Add the scalar route's self time since ``t0``: ``mark`` holds the
-        grant, replan and inline-event seconds before it."""
+        grant, replan and delivery seconds before it."""
         self.scalar_seconds += time.perf_counter() - t0 \
             - (self.grant_seconds - mark[0]) \
             - (self.sched.replan_seconds - mark[1]) \
-            - (self.inline_seconds - mark[2])
+            - (self.delivery_seconds - mark[2])
 
-    def _drain_array_scalar(self, state, cursor: int, heap_t: float,
+    def _drain_array_scalar(self, state, cursor: int, top: float,
                             bound: float) -> bool:
         """Scalar tail of the array drain for segments too small to amortize
         a vectorized match: per-row ``checkin`` with the state's candidate
@@ -598,18 +631,18 @@ class Simulator:
         surfaces a request the state does not know (a mid-row replan), the
         state is invalidated and the caller's next ``prepare`` rebuilds it.
 
-        A control event armed before the next row is handled here when it is
-        inert (:meth:`_inert`), and the route goes on past the segment's
-        bound to the next rows; the first event that is not inert ends
-        the route, as do the first row past ``bound``, the chunk's end and a
-        fill that empties ``_open``.  A row whose atom the state does not
-        cover (a MISS) is the route's last: its ``checkin`` replans, which
-        the state does not follow, so the state is invalidated after it.
-        After inline events the route also ends where the rows before the
-        next event or ``bound`` fill a vectorized segment, so that the
-        caller routes them to the matcher as it would have after handling
-        those events itself.  Returns whether the route took a MISS."""
+        The route goes on past a response that comes due before the next
+        row (``top``: the first, or the next control event), which it passes
+        as data (:meth:`_pass`).  It ends at the first row past the next
+        control event or ``bound``, at the chunk's end and at a fill that
+        empties ``_open``; and after a response passed, where the rows
+        before the next one or ``bound`` fill a vectorized segment, so that
+        the caller routes them to the matcher.  A row whose atom the state
+        does not cover (a MISS) is the route's last: its ``checkin``
+        replans, which the state does not follow, so the state is
+        invalidated after it.  Returns whether the route took a MISS."""
         heap = self._heap
+        due = self._due
         sched = self.sched
         grant = self._grant
         times, aids = self._times, self._aids
@@ -618,18 +651,20 @@ class Simulator:
         covered = state.covered.tolist()
         n_cov = len(has_cand)
         n_times = len(times)
-        # rows after stop_t (the heap's top, or bound) wait for an event
-        # or end the route
-        stop_t = heap_t if heap_t < bound else bound
+        # rows after stop_t (the next response or event, or bound) wait for
+        # a response passed or end the route
+        stop_t = top if top < bound else bound
         i = cursor
         missed = False
         while i < n_times:
             t_i = times[i]
             if t_i > stop_t:
-                if t_i > bound or not self._inline_events(t_i, state.token):
-                    break                       # past the bound, or an
-                #                                 event the loop must handle
-                top = heap[0][0] if heap else math.inf
+                if t_i > bound or heap and heap[0][0] < t_i:
+                    break                       # past the bound, or a
+                #                                 control event first
+                top = self._pass(t_i)
+                if heap and heap[0][0] < top:
+                    top = heap[0][0]
                 stop_t = top if top < bound else bound
                 j = i + SCALAR_SEG_ROWS - 1
                 if j < n_times and times[j] <= stop_t:
@@ -655,7 +690,9 @@ class Simulator:
             state.consume(rix)
             if filled and not self._open:
                 break
-            top = heap[0][0]                    # a grant only pushes
+            top = due[0]                        # the grant's response,
+            if filled and heap[0][0] < top:     # or a fill's events
+                top = heap[0][0]
             if top < stop_t:
                 stop_t = top
         if missed:
@@ -663,70 +700,16 @@ class Simulator:
         self._cursor = i
         self.checkins_seen += i - cursor
         if times[i - 1] > self.now:             # the last row came after
-            self.now = times[i - 1]             # the last inline event
+            self.now = times[i - 1]             # the last response passed
         return missed
-
-    def _inert(self, t: float, kind: int, payload) -> bool:
-        """Whether the control event ``(t, kind, payload)``, handled now,
-        leaves all that the array drain has cached as it is: the plan, the
-        atom index, ``_open``, the engine's state and the liveness bitmap.
-        Only a RESPONSE that cannot complete its round is: a stale armed
-        entry, one of a round already over, or one that leaves the round
-        short of quorum or of its fill.  It touches only the request's
-        counts and buffer, the scheduler's per-job profile and its own
-        re-arm."""
-        if kind != RESPONSE:
-            return False
-        buf = payload.resp_buf
-        if (payload.resp_t != t or not buf
-                or payload.complete_time is not None
-                or payload.job.current is not payload):
-            return True
-        return not _round_complete(payload, buf[0][4])
-
-    def _inline_events(self, t_i: float, token: Optional[tuple] = None
-                       ) -> bool:
-        """Handle the control events armed before ``t_i`` inside the drain,
-        each as ``_loop`` would, while they are inert.  Returns False, with
-        the first event that is not inert still queued for ``_loop``, or when
-        handling one dirtied the plan or moved the scheduler's match token
-        away from ``token``, the token of the caller's state (which must then
-        be prepared again; None: the caller holds none).  Their wall time
-        goes to ``inline_seconds``; while the parts are kept, to the events'
-        counts, seconds and spans as well."""
-        heap = self._heap
-        pop_response = self._pop_response       # as wrapped on the instance
-        sched = self.sched
-        perf = time.perf_counter
-        while heap and heap[0][0] < t_i:
-            t, _, kind, payload = heap[0]
-            if not self._inert(t, kind, payload):
-                return False
-            te = perf()
-            heapq.heappop(heap)
-            self.now = t
-            pop_response(payload)
-            dt = perf() - te
-            self.inline_seconds += dt
-            if self._clocked:
-                self.inline_events += 1
-                self.event_counts[RESPONSE] += 1
-                self.event_seconds[RESPONSE] += dt
-                tr = _obstrace.TRACER
-                if tr.enabled:
-                    tr.complete(_EVENT_SPAN[RESPONSE], tr.us(te), dt * 1e6,
-                                cat="sim", sim_t=t)
-            if token is not None and (sched.plan_dirty
-                                      or sched.match_token() != token):
-                return False
-        return True
 
     # ------------------------------------------------------------ internals
 
     def _grant(self, req: JobRequest, i: int, dev_t: float, speed: float
                ) -> bool:
         """Apply one granted check-in (chunk row ``i`` at ``dev_t``):
-        materialize the ``Device``, arm its response, handle request fill.
+        materialize the ``Device``, buffer its response, handle request
+        fill (its deadline, and the entry of the response completing it).
         The single place grant side effects happen — shared by both drain
         engines.  Returns True iff the request just filled."""
         clocked = self._clocked
@@ -767,22 +750,28 @@ class Simulator:
                                 job.task_time_sigma)
         ok = not fails_from(speed, self._fail_u[i], self.stream.fail_base,
                             self.stream.fail_slow_boost)
+        # merged into the buffer's heap at its next delivery (_deliver)
         t_resp = dev_t + rt
-        buf = req.resp_buf
-        if buf is None:
-            buf = req.resp_buf = []
-        heapq.heappush(buf, (t_resp, next(self._seq), dev, rt, ok))
-        if t_resp < req.resp_t:
-            # arm (or re-arm earlier) the request's single RESPONSE entry;
-            # a previously armed later entry goes stale
-            req.resp_t = t_resp
-            heapq.heappush(self._heap, (t_resp, next(self._seq), RESPONSE,
-                                        req))
+        seq = next(self._seq)
+        req.resp_new.append((t_resp, seq, dev, rt, ok))
+        heapq.heappush(self._due, t_resp)
         if filled and req.alloc_complete_time is None:
             req.alloc_complete_time = dev_t        # scheduling delay ends
             job.status = JobStatus.COLLECTING
-            heapq.heappush(self._heap, (dev_t + job.deadline,
-                                        next(self._seq), DEADLINE, req))
+            # the responses due before the fill, so that the buffer and the
+            # entries armed are the event model's when it pushed the
+            # deadline: those at the deadline's time go first (_on_deadline)
+            t1 = time.perf_counter()
+            self._deliver(req, dev_t)
+            t1 = time.perf_counter() - t1
+            self.delivery_seconds += t1
+            if clocked:
+                t0 += t1
+            deadline = dev_t + job.deadline
+            req.resp_ties = req.resp_armed.count(deadline)
+            heapq.heappush(self._heap, (deadline, next(self._seq), DEADLINE,
+                                        req))
+            self._arm(req)
         if self.grant_log is not None:
             self.grant_log.append((dev_t, job.job_id, req.round_index))
         if clocked:
@@ -792,6 +781,187 @@ class Simulator:
 
     def _push(self, t: float, kind: int, payload: object) -> None:
         heapq.heappush(self._heap, (t, next(self._seq), kind, payload))
+
+    # ---- responses: data in their request's buffer, delivered when read ----
+
+    def _deliver(self, req: JobRequest, t: float, through: bool = False
+                 ) -> None:
+        """Apply ``req``'s buffered responses due before ``t`` (``through``:
+        and at ``t``) in time, then grant, order, each as its own RESPONSE
+        event of the event model applied it: ``sched.on_response`` at its
+        time, then the request's counts.
+
+        Grants not yet merged into the buffer's heap are merged first, each
+        after the responses due strictly before its check-in (a row comes
+        before an event at its time), so the heap keeps the layout that one
+        event a response left: a blackout's draws walk it.  Every grant
+        merged came at or before ``t``.  Each time a response became the
+        heap's head, the event model armed an entry at its time: the times
+        go to ``resp_armed``."""
+        buf = req.resp_buf
+        new = req.resp_new
+        arm = req.resp_armed.append
+        sched = self.sched
+        on_response = sched.on_response
+        dirty = sched.plan_dirty
+        heappop = heapq.heappop
+        n = 0
+        for e in new:
+            g = e[2].checkin_time
+            while buf and buf[0][0] < g:
+                r_t, _, dev, rt, ok = heappop(buf)
+                on_response(req, dev, rt, ok, r_t)
+                if ok:
+                    req.responses += 1
+                else:
+                    req.failures += 1
+                n += 1
+                if buf:
+                    arm(buf[0][0])
+            if not buf or e[0] < buf[0][0]:
+                arm(e[0])
+            heapq.heappush(buf, e)
+        new.clear()
+        while buf:
+            h = buf[0][0]
+            if h > t or h == t and not through:
+                break
+            r_t, _, dev, rt, ok = heappop(buf)
+            on_response(req, dev, rt, ok, r_t)
+            if ok:
+                req.responses += 1
+            else:
+                req.failures += 1
+            n += 1
+            if buf:
+                arm(buf[0][0])
+        if n:
+            if not dirty and sched.plan_dirty:
+                raise RuntimeError(_DIRTY)
+            if self._clocked:
+                self.responses_delivered += n
+
+    def _settle(self, req: JobRequest, t: float, n: float) -> bool:
+        """At ``req``'s deadline or completing entry (time ``t``): deliver
+        its responses due before ``t``, then those due at ``t``, one event
+        each and at most ``n`` of them, until the round reaches quorum.
+        Returns whether it did (the request is filled)."""
+        self._deliver(req, t)
+        buf, arm = req.resp_buf, req.resp_armed.append
+        sched = self.sched
+        dirty = sched.plan_dirty
+        done = False
+        k = 0
+        while k < n and buf and buf[0][0] == t:
+            _, _, dev, rt, ok = heapq.heappop(buf)
+            sched.on_response(req, dev, rt, ok, t)
+            if ok:
+                req.responses += 1
+            else:
+                req.failures += 1
+            k += 1
+            if req.responses >= req.quorum:
+                done = True
+                break
+            if buf:                             # the event model re-armed
+                arm(buf[0][0])
+        if k:
+            if not dirty and sched.plan_dirty:
+                raise RuntimeError(_DIRTY)
+            if self._clocked:
+                self.responses_delivered += k
+        return done
+
+    def _deliver_before(self, t: float) -> None:
+        """The scheduler's replan hook: every live request's responses due
+        before ``t``, the time of the check-in the replan serves (the
+        events before it come first, those at its time after it)."""
+        t0 = time.perf_counter()
+        deliver = self._deliver
+        for req in self._awaiting:
+            buf = req.resp_buf
+            if req.resp_new or buf and buf[0][0] < t:
+                deliver(req, t)
+        self.delivery_seconds += time.perf_counter() - t0
+
+    def _pause(self, bound: float) -> float:
+        """Leave the state as handling every event up to ``bound`` one at a
+        time left it, where :meth:`step_until` returns: deliver every
+        response due by then, and pass them (:meth:`_pass`), which sets the
+        clock.  Returns the time of the event model's next response entry
+        (``inf``: none)."""
+        t0 = time.perf_counter()
+        deliver = self._deliver
+        for req in self._awaiting:
+            buf = req.resp_buf
+            if req.resp_new or buf and buf[0][0] <= bound:
+                deliver(req, bound, True)
+        nxt = self._pass(math.nextafter(bound, math.inf))
+        self.delivery_seconds += time.perf_counter() - t0
+        return nxt
+
+    def _pass(self, t: float) -> float:
+        """The drain or the loop has come to ``t``: drop the responses due
+        before it from ``_due``.  The event model handled their entries one
+        event each, which moved the clock to their times.  Returns the time
+        of its next response entry (``inf``: none)."""
+        due, gone = self._due, self._gone
+        heappop = heapq.heappop
+        while due:
+            v = due[0]
+            if gone and v in gone:              # no entry in the event model
+                heappop(due)
+                if gone[v] == 1:
+                    del gone[v]
+                else:
+                    gone[v] -= 1
+                continue
+            if v >= t:
+                return v
+            heappop(due)
+            if v > self.now:
+                self.now = v
+        return math.inf
+
+    def _arm(self, req: JobRequest) -> None:
+        """Arm ``req``'s RESPONSE entry, now that it is filled and its
+        responses before now are delivered (at its fill, or again after a
+        blackout revoked some of them), at the response that completes its
+        round: in the buffer's order, the first at which the responses reach
+        quorum.  If that is not before the deadline, the deadline decides
+        the round (:meth:`_on_deadline`) and no entry is armed."""
+        need = req.quorum - req.responses
+        done = math.inf
+        for e in sorted(req.resp_buf):
+            if e[4]:
+                need -= 1
+            if need <= 0:
+                done = e[0]
+                break
+        if done >= req.alloc_complete_time + req.job.deadline:
+            done = math.inf
+        elif done != req.resp_t:                # an entry armed earlier
+            self._push(done, RESPONSE, req)     # goes stale
+        req.resp_t = done
+
+    def _close(self, req: JobRequest) -> None:
+        """``req``'s round is over, its grants all merged: the rest of its
+        buffer is dropped unread.  The event model's entries for those it
+        had armed still came due (stale); the others go to ``_gone``."""
+        del self._awaiting[req]
+        if req.resp_buf:
+            self._forget(req.resp_buf, set(req.resp_armed))
+        req.resp_buf = req.resp_new = req.resp_armed = None
+        req.resp_t = math.inf
+
+    def _forget(self, rows, armed) -> None:
+        """The responses ``rows`` leave their buffer unread: those at a time
+        where the event model armed no entry (``armed``, a set of times) had
+        none (``_gone``)."""
+        gone = self._gone
+        for e in rows:
+            if e[0] not in armed:
+                gone[e[0]] = gone.get(e[0], 0) + 1
 
     # ---- device stream (struct-of-arrays chunks) ----
 
@@ -911,30 +1081,31 @@ class Simulator:
             req = job.current
             if req is None:
                 continue
+            self._deliver(req, b.start)
             buf = req.resp_buf
             if not buf:
                 continue
+            old = buf[0][0]
             keep = []
-            revoked = 0
+            drop = []
             for e in buf:
                 if b.start <= e[0] < b.stop and (
                         b.drop_prob >= 1.0 or rng.random() < b.drop_prob):
-                    revoked += 1
+                    drop.append(e)
                 else:
                     keep.append(e)
-            if not revoked:
+            if not drop:
                 continue
+            self._forget(drop, set(req.resp_armed))
+            revoked = len(drop)
             total_revoked += revoked
             self.metrics.revoked_responses += revoked
             heapq.heapify(keep)
-            req.resp_buf = keep or None
-            head = keep[0][0] if keep else math.inf
-            if head != req.resp_t:
-                # re-arm (the control-heap entry at the old resp_t goes
-                # stale via the usual armed-entry protocol)
-                req.resp_t = head
-                if keep:
-                    self._push(head, RESPONSE, req)
+            req.resp_buf = keep
+            if keep and keep[0][0] != old:      # the event model re-armed
+                req.resp_armed.append(keep[0][0])
+            if req.alloc_complete_time is not None:
+                self._arm(req)
         tr = _obstrace.TRACER
         if tr.enabled:
             tr.instant("fault.blackout", cat="fault", sim_t=self.now,
@@ -992,54 +1163,40 @@ class Simulator:
         # it doesn't raise the bar) — identical to the pre-policy simulator
         # whenever overcommit == 1.0
         req.quorum = math.ceil(job.quorum_fraction * nominal)
+        req.resp_buf, req.resp_new, req.resp_armed = [], [], []
+        self._awaiting[req] = None
         job.current = req
         job.status = JobStatus.WAITING
         self._open += 1
         self.metrics.submitted_rounds += 1
         self.sched.on_request(req, self.now)
 
-    def _pop_response(self, req: JobRequest) -> None:
-        """Process the armed RESPONSE entry of ``req`` at ``self.now``."""
-        buf = req.resp_buf
-        if req.resp_t != self.now or not buf:
-            return                              # stale armed entry
-        if req.complete_time is not None or req.job.current is not req:
-            # round over (completed or aborted): drop the whole buffer in one
-            # event instead of one stale pop per granted device
-            req.resp_buf = None
-            req.resp_t = math.inf
+    def _on_response_entry(self, req: JobRequest) -> None:
+        """The response armed by :meth:`_arm` comes due (at ``self.now``):
+        deliver the responses before it, then it, and complete the round.
+        An entry re-armed since, or of a round over, is stale."""
+        if req.resp_t != self.now:
             return
-        _, _, dev, rt, ok = heapq.heappop(buf)
-        self._on_response(req, dev, rt, ok)
-        if buf and req.complete_time is None and req.job.current is req:
-            req.resp_t = buf[0][0]              # re-arm for the next response
-            self._push(buf[0][0], RESPONSE, req)
-        else:
-            req.resp_buf = None
-            req.resp_t = math.inf
-
-    def _on_response(self, req: JobRequest, dev: Device, rt: float, ok: bool) -> None:
-        if req.complete_time is not None or req.job.current is not req:
-            return                                     # stale (round over/aborted)
-        self.sched.on_response(req, dev, rt, ok, self.now)
-        if ok:
-            req.responses += 1
-        else:
-            req.failures += 1
-        if _round_complete(req):
-            self._complete_round(req)
+        self._settle(req, self.now, math.inf)   # reaches quorum: armed so
+        if self._clocked:
+            self.responses_delivered -= 1       # the last was this event
+        self._complete_round(req)
 
     def _on_deadline(self, req: JobRequest) -> None:
         if req.complete_time is not None or req.job.current is not req:
             return
         job = req.job
-        if req.responses >= req.quorum:
+        # the responses at its time whose entries the event model had armed
+        # before this one handled first, the first to reach quorum completing
+        if self._settle(req, self.now, req.resp_ties) \
+                or req.responses >= req.quorum:
             self._complete_round(req)
             return
         # round aborted: retry the same round (§5.1 random-baseline abortions)
         # (the request is necessarily filled here — DEADLINE events are only
         # pushed at fill time — so _open was already decremented)
         self.metrics.aborts += 1
+        self._close(req)
         self._observe_overcommit(job, req)
         self.sched.on_complete(req, self.now)
         job.current = None
@@ -1055,6 +1212,7 @@ class Simulator:
     def _complete_round(self, req: JobRequest) -> None:
         # completion requires alloc_complete_time (fill), so the fill-time
         # _open decrement in the drain loop has always happened by now
+        self._close(req)
         req.complete_time = self.now
         job = req.job
         job.rounds_done += 1

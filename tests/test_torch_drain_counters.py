@@ -24,7 +24,7 @@ from repro_torch.sim import (JobTraceConfig, PopulationConfig, SimConfig,
 from repro_torch.sim.simulator import EVENT_KINDS, Simulator
 import torch_parity  # noqa: F401  (pins torch to one thread)
 
-HANDLERS = ("_on_job_arrival", "_pop_response", "_on_deadline",
+HANDLERS = ("_on_job_arrival", "_on_response_entry", "_on_deadline",
             "_on_blackout")
 
 
@@ -39,7 +39,9 @@ def _sim():
 
 
 def _drive(sim, handled=None):
-    """Run to the end in 10-minute slices; the caller's wall time."""
+    """Run to the end in 10-minute slices; the caller's wall time.
+    ``handled`` counts the events handled by kind, and the responses
+    applied (``applied``)."""
     if handled is not None:
         for kind, name in zip(EVENT_KINDS, HANDLERS):
             inner = getattr(sim, name)
@@ -48,6 +50,12 @@ def _drive(sim, handled=None):
                 handled[kind] += 1
                 return inner(payload)
             setattr(sim, name, counted)
+        on_response = sim.sched.on_response
+
+        def applied(*a):
+            handled["applied"] += 1
+            return on_response(*a)
+        sim.sched.on_response = applied
     wall, t, done = 0.0, 0.0, False
     while not done:
         t += 600.0
@@ -61,7 +69,7 @@ def _drive(sim, handled=None):
 @pytest.fixture(scope="module")
 def traced():
     sim = _sim()
-    handled = dict.fromkeys(EVENT_KINDS, 0)
+    handled = dict.fromkeys(EVENT_KINDS + ("applied",), 0)
     with obs.session(tracing=True, metrics=True) as (tr, reg):
         wall = _drive(sim, handled)
         spans = [e for e in tr.events if e["name"].startswith("sim.event.")]
@@ -131,45 +139,51 @@ def test_without_a_reader_no_parts_are_kept_and_no_outcome_changes(
     assert off.metrics.jcts == on.metrics.jcts
 
 
-def test_inline_events_are_counted_among_the_responses(traced):
-    """The scalar route handles most responses in place: each is counted
-    once, as an inline event and as a response (its handler's calls)."""
+def test_delivered_responses_are_counted_beside_the_completing_ones(traced):
+    """Each response is applied once: delivered as data (counted in
+    ``responses_delivered``) or as the one RESPONSE entry of its round,
+    which completes it; nearly all are data."""
     sim, handled, _, _, counters = traced
     p = sim.drain_parts()
-    assert 0 < p["inline_events"] <= p["events.response"] \
-        == handled["response"]
-    assert counters["sim.inline_events"] == p["inline_events"]
-    assert 0 < sim.inline_seconds <= p["event_seconds.response"]
+    assert 0 < p["events.response"] == handled["response"] \
+        <= len(sim.metrics.rounds)
+    assert p["responses_delivered"] + p["events.response"] \
+        == handled["applied"]
+    assert p["responses_delivered"] >= 0.9 * handled["applied"]
+    assert counters["sim.responses_delivered"] == p["responses_delivered"]
+    assert sim.delivery_seconds > 0
 
 
 @pytest.mark.parametrize("with_obs", [False, True])
-def test_inline_event_time_is_not_drain_time(with_obs):
-    """A response handler made slow (2 ms a call) leaves the drain's
-    stopwatch and the scalar route's self time as they were: events handled
-    inside the drain are timed apart, whether or not the parts are kept."""
+def test_delivery_time_is_not_drain_time(with_obs):
+    """Response feedback made slow (2 ms a response) leaves the drain's
+    stopwatch and the scalar route's self time as they were: the
+    deliveries before replans and at fills are timed apart, whether or not
+    the parts are kept, and the completing responses are their events'
+    time."""
     sim = _sim()
-    inner = sim._pop_response
+    inner = sim.sched.on_response
 
-    def slow(req):
+    def slow(*a):
         t = time.perf_counter()
         while time.perf_counter() - t < 2e-3:
             pass
-        return inner(req)
-    sim._pop_response = slow
+        return inner(*a)
+    sim.sched.on_response = slow
     if with_obs:
         with obs.session(tracing=True, metrics=True):
             _drive(sim)
     else:
         _drive(sim)
-    assert sim.inline_seconds >= 2e-3 * 100
-    assert sim.drain_seconds < 0.5 * sim.inline_seconds
+    assert sim.delivery_seconds >= 2e-3 * 100
+    assert sim.drain_seconds < 0.5 * sim.delivery_seconds
     if with_obs:
         p = sim.drain_parts()
-        assert p["inline_events"] >= 100
+        assert p["responses_delivered"] >= 100
         assert p["event_seconds.response"] >= 2e-3 * p["events.response"]
-        assert p["scalar_seconds"] < 0.5 * sim.inline_seconds
+        assert p["scalar_seconds"] < 0.5 * sim.delivery_seconds
     else:
-        assert sim.inline_events == 0
+        assert sim.responses_delivered == 0
 
 
 def test_trace_export_gives_its_clock_and_origin():
